@@ -1,0 +1,131 @@
+"""Weight bridge: a JAX run's encoder weights as the port's state dict.
+
+``state_dict_from_jax`` maps the JAX package's nested ``params`` /
+``batch_stats`` dicts (numpy leaves) onto :class:`SRLModules`:
+
+    params/encoder/Conv_i/kernel          HWIO -> encoder.convs.i.weight OIHW
+    params/encoder/BatchNorm_i/scale,bias      -> encoder.bns.i.weight,bias
+    batch_stats/encoder/BatchNorm_i/mean,var   -> encoder.bns.i.running_mean,var
+    params/encoder/Dense_0/kernel,bias  (in,out) -> encoder.fc.weight (out,in),bias
+
+Subtrees this slice does not port (decoder, heads) come back as a list of
+skipped keys. Convert a run folder in place:
+
+    python -m srl_zoo_tpu_torch.bridge --log-folder logs/<run>
+
+reads ``srl_model.msgpack`` (flax's serialization, decoded here without
+flax) and writes ``srl_model.pth`` beside it. Only this CLI needs
+``msgpack``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from srl_zoo_tpu_torch.config import SRLConfig
+from srl_zoo_tpu_torch.models.encoders import KERNEL_SIZES
+
+_MSGPACK_NDARRAY = 1  # flax's ext type: packed (shape, dtype name, C bytes)
+
+
+def _flatten(tree: Dict, prefix: str = "") -> Dict[str, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, dict):
+            out.update(_flatten(v, key))
+        else:
+            out[key] = v
+    return out
+
+
+def state_dict_from_jax(params: Dict, batch_stats: Dict
+                        ) -> Tuple[Dict[str, torch.Tensor], List[str]]:
+    """(state dict of SRLModules, skipped JAX keys)."""
+    flat = {f"params/{k}": v for k, v in _flatten(params).items()}
+    flat.update({f"batch_stats/{k}": v
+                 for k, v in _flatten(batch_stats).items()})
+
+    def take(key: str) -> torch.Tensor:
+        if key not in flat:
+            raise KeyError(f"JAX weights lack '{key}'")
+        return torch.from_numpy(np.array(flat.pop(key), np.float32))
+
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(len(KERNEL_SIZES)):
+        sd[f"encoder.convs.{i}.weight"] = take(
+            f"params/encoder/Conv_{i}/kernel").permute(3, 2, 0, 1).contiguous()
+        bn = f"encoder.bns.{i}"
+        sd[f"{bn}.weight"] = take(f"params/encoder/BatchNorm_{i}/scale")
+        sd[f"{bn}.bias"] = take(f"params/encoder/BatchNorm_{i}/bias")
+        sd[f"{bn}.running_mean"] = take(f"batch_stats/encoder/BatchNorm_{i}/mean")
+        sd[f"{bn}.running_var"] = take(f"batch_stats/encoder/BatchNorm_{i}/var")
+        sd[f"{bn}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+    sd["encoder.fc.weight"] = take("params/encoder/Dense_0/kernel").T.contiguous()
+    sd["encoder.fc.bias"] = take("params/encoder/Dense_0/bias")
+    unknown = [k for k in flat if k.split("/")[1] == "encoder"]
+    if unknown:
+        raise KeyError(f"encoder weights the port does not know: {unknown}")
+    return sd, sorted(flat)
+
+
+def read_flax_msgpack(path: str) -> Dict:
+    """Decode a ``flax.serialization.to_bytes`` file of array leaves into
+    nested dicts of numpy arrays (leaves over 1 GiB, which flax splits into
+    chunks, do not occur in an encoder)."""
+    import msgpack
+
+    def ndarray(data: bytes) -> np.ndarray:
+        shape, dtype, buf = msgpack.unpackb(data, raw=True)
+        if dtype == b"bfloat16":
+            raise ValueError("bfloat16 weights are not supported")
+        return np.frombuffer(buf, dtype=np.dtype(dtype.decode())
+                             ).reshape(shape).copy()
+
+    def ext_hook(code: int, data: bytes):
+        if code == _MSGPACK_NDARRAY:
+            return ndarray(data)
+        raise ValueError(f"unsupported msgpack ext type {code} in {path}")
+
+    with open(path, "rb") as f:
+        return msgpack.unpackb(f.read(), ext_hook=ext_hook, raw=False,
+                               strict_map_key=False)
+
+
+def convert_run(log_folder: str) -> Tuple[str, List[str]]:
+    """srl_model.msgpack -> srl_model.pth in ``log_folder``; returns (path,
+    skipped keys). The result is loaded into the config's model before it
+    is written, so a shape mismatch fails here."""
+    from srl_zoo_tpu_torch.checkpoint import MODEL_FILE, write_state_dict
+    from srl_zoo_tpu_torch.models.srl_modules import SRLModules
+
+    cfg = SRLConfig.load(log_folder)
+    tree = read_flax_msgpack(os.path.join(log_folder, "srl_model.msgpack"))
+    sd, skipped = state_dict_from_jax(tree["params"],
+                                      tree.get("batch_stats", {}))
+    SRLModules(cfg).load_state_dict(sd)
+    path = os.path.join(log_folder, MODEL_FILE)
+    write_state_dict(path, sd)
+    return path, skipped
+
+
+def main(argv=None) -> str:
+    p = argparse.ArgumentParser(description="Convert a JAX run's "
+                                            "srl_model.msgpack to srl_model.pth")
+    p.add_argument("--log-folder", type=str, required=True)
+    args = p.parse_args(argv)
+    path, skipped = convert_run(args.log_folder)
+    print(f"wrote {path}")
+    if skipped:
+        print(f"skipped {len(skipped)} keys the port does not run yet: "
+              + ", ".join(skipped))
+    return path
+
+
+if __name__ == "__main__":
+    main()
