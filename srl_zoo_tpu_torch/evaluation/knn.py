@@ -49,12 +49,13 @@ def sample_queries(n: int, n_samples: Optional[int], seed: int) -> np.ndarray:
 
 def knn_mse(learned_states: np.ndarray, ground_truth_states: np.ndarray,
             k: int = 5, n_samples: Optional[int] = None, seed: int = 0,
-            query_chunk: int = 4096, device=None
-            ) -> Tuple[float, np.ndarray, np.ndarray]:
+            device=None) -> Tuple[float, np.ndarray, np.ndarray]:
     """Returns (knn_mse, query_indices, neighbor_indices (Q, k)).
 
     ``n_samples`` limits the number of queries (None = every point), drawn
-    with ``np.random.RandomState(seed)`` as the JAX package draws them."""
+    with ``np.random.RandomState(seed)`` as the JAX package draws them.
+    On a GPU the kernel takes k + 1 <= 64 (``knn_topk.MAX_K``); the CPU
+    path takes any k."""
     device = resolve_device(device)
     use_strict_float32()
     learned = np.asarray(learned_states, np.float32)
@@ -66,10 +67,7 @@ def knn_mse(learned_states: np.ndarray, ground_truth_states: np.ndarray,
     queries = sample_queries(n, n_samples, seed)
     refs = centre(torch.from_numpy(learned).to(device))
     q_all = torch.from_numpy(queries).to(device)
-    chunks = [knn_topk(refs.index_select(0, q_all[s:s + query_chunk]), refs,
-                       k + 1).cpu().numpy()
-              for s in range(0, len(queries), query_chunk)]
-    score, neighbor_idx = score_neighbors(np.concatenate(chunks), queries, gt,
-                                          k)
+    idx = knn_topk(refs.index_select(0, q_all), refs, k + 1).cpu().numpy()
+    score, neighbor_idx = score_neighbors(idx, queries, gt, k)
     return score, queries, neighbor_idx
 

@@ -57,18 +57,19 @@ def _splits(nq: int, n: int, device: torch.device) -> int:
 def knn_topk_with_dist(q: torch.Tensor, refs: torch.Tensor, k: int):
     """(distances (Q, k) float32, indices (Q, k) int64), ascending.
 
-    CUDA tensors launch the kernel; CPU tensors take :func:`knn_topk_plain`;
-    any other device raises."""
-    if k > refs.shape[0]:
-        raise ValueError(f"k={k} > {refs.shape[0]} reference points")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"k={k} outside [1, {MAX_K}]")
+    CUDA tensors launch the kernel (k <= ``MAX_K``); CPU tensors take
+    :func:`knn_topk_plain` (any k); any other device raises."""
+    if not 1 <= k <= refs.shape[0]:
+        raise ValueError(f"k={k} outside [1, {refs.shape[0]} reference "
+                         "points]")
     if q.device != refs.device:
         raise ValueError(f"knn_topk: q on {q.device}, refs on {refs.device}")
     if q.device.type == "cpu":
         return knn_topk_plain(q, refs, k)
     if q.device.type != "cuda":
         raise ValueError(f"knn_topk: no kernel for device {q.device}")
+    if k > MAX_K:
+        raise ValueError(f"knn_topk: the kernel takes k <= {MAX_K}, got {k}")
     if q.dim() != 2 or refs.dim() != 2 or q.shape[1] != refs.shape[1]:
         raise ValueError(f"knn_topk: expected (Q, D) and (N, D), got "
                          f"{tuple(q.shape)} and {tuple(refs.shape)}")

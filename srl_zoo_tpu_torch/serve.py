@@ -3,9 +3,12 @@
 
 POST raw npy bytes of a uint8 observation (H, W, C) or batch (B, H, W, C)
 to ``/encode`` and receive npy bytes of float32 states; GET /healthz returns
-run metadata. Requests are serialized through a lock, or grouped by the
+run metadata. Requests are encoded one at a time, or grouped by the
 coalescer (``--coalesce-ms``) into one device batch of up to
-``--max-batch`` rows.
+``--max-batch`` rows. Either way every encode runs on one long-lived
+thread, which the server warms before it returns: PyTorch gives each
+thread its own cuDNN and cuBLAS handles, so the first encode on a fresh
+thread pays for them again.
 
   python -m srl_zoo_tpu_torch.serve --log-folder logs/<run> --port 8080
   # client:
@@ -25,6 +28,7 @@ import io
 import json
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
@@ -166,16 +170,9 @@ class BatchCoalescer:
                     return
 
 
-def make_handler(encoder, info: dict, max_body_mb: int = 256,
-                 coalescer: "BatchCoalescer | None" = None):
-    lock = threading.Lock()
+def make_handler(encoder, info: dict, run_encode, max_body_mb: int = 256):
+    """``run_encode(obs)`` encodes one validated request."""
     max_body = max_body_mb * 1024 * 1024
-
-    def run_encode(obs):
-        if coalescer is not None:
-            return coalescer.encode(obs)
-        with lock:
-            return encoder.encode(obs)
 
     class Handler(BaseHTTPRequestHandler):
         timeout = 60  # a stalled client must not pin a handler thread
@@ -206,7 +203,7 @@ def make_handler(encoder, info: dict, max_body_mb: int = 256,
                 length = int(self.headers.get("Content-Length", "0"))
                 if length > max_body:
                     # bound memory: one oversized request must not OOM the
-                    # server (requests serialize through the encoder lock)
+                    # server (requests serialize through the encode thread)
                     self._reply(413, f"body {length} B exceeds the "
                                      f"{max_body_mb} MiB limit".encode(),
                                 "text/plain")
@@ -219,7 +216,7 @@ def make_handler(encoder, info: dict, max_body_mb: int = 256,
                     self._reply(400, f"expected uint8 pixels, got "
                                      f"{obs.dtype}".encode(), "text/plain")
                     return
-                # geometry validated HERE, on both the lock and coalescer
+                # geometry validated HERE, on both the serial and coalescer
                 # paths: after this point any ValueError/TypeError escaping
                 # the encoder is a SERVER fault and must be a 500, or load
                 # balancers can't see a sick server
@@ -259,24 +256,39 @@ def build_server(log_folder: str, host: str = "127.0.0.1", port: int = 8080,
             "model_type": cfg.model_type,
             "img_shape": [cfg.img_height, cfg.img_width, cfg.n_channels],
             "losses": dict(cfg.losses), "device": str(encoder.device)}
+    if coalesce_ms > 0:
+        coalescer = BatchCoalescer(encoder, coalesce_ms)
+        run_encode, close = coalescer.encode, coalescer.close
+    else:
+        coalescer = None
+        worker = ThreadPoolExecutor(1, thread_name_prefix="srl-serve-encode")
+        close = worker.shutdown
+
+        def run_encode(obs):
+            return worker.submit(encoder.encode, obs).result()
     # not on a client's clock: the first encode builds the kernels, and the
     # first encode of each batch size picks its cuDNN plans, which takes
-    # far longer than the encode. Every chunk the encoder runs has
-    # 1..max_batch rows.
+    # far longer than the encode. Warm on the encode thread, which holds
+    # the handles. Every chunk the encoder runs has 1..max_batch rows.
     blank = np.zeros((max_batch,) + cfg.img_shape, np.uint8)
-    for rows in range(1, max_batch + 1):
-        encoder.encode(blank[:rows])
-    coalescer = BatchCoalescer(encoder, coalesce_ms) if coalesce_ms > 0 \
-        else None
+    try:
+        for rows in range(1, max_batch + 1):
+            run_encode(blank[:rows])
+    except BaseException:
+        close()
+        raise
 
     class _Server(ThreadingHTTPServer):
-        def server_close(self):  # stop the coalescer worker with the server
-            if coalescer is not None:
-                coalescer.close()
+        # socketserver's default listen backlog of 5 drops the SYNs of a
+        # burst of concurrent clients, which then wait ~1 s to retry
+        request_queue_size = 128
+
+        def server_close(self):  # stop the encode thread with the server
+            close()
             super().server_close()
 
     server = _Server(
-        (host, port), make_handler(encoder, info, max_body_mb, coalescer))
+        (host, port), make_handler(encoder, info, run_encode, max_body_mb))
     server.coalescer = coalescer  # introspectable (tests, ops tooling)
     return server
 

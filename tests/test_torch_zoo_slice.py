@@ -24,6 +24,7 @@ import torch
 from srl_zoo_tpu_torch import bridge
 from srl_zoo_tpu_torch.config import SRLConfig
 from srl_zoo_tpu_torch.inference import StateEncoder
+from srl_zoo_tpu_torch.ops.knn_topk import knn_topk_plain
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -120,6 +121,61 @@ def test_knn_mse_matches_jax(synthetic_dataset, jax_states, n_samples, seed):
     np.testing.assert_allclose(got, want, rtol=1e-6)
 
 
+def test_knn_mse_keeps_the_neighbour_order_of_states_far_from_origin():
+    """States 1e3 from the origin with neighbours ~1e-2 apart: in float32,
+    |q|^2 + |r|^2 - 2 q.r loses the neighbour order to cancellation, and
+    the port's knn_mse centres the states first. The score must be the
+    exact (float64) one; the uncentred top-k shows the fault it avoids,
+    and the JAX package, which does not centre, shows it too."""
+    from srl_zoo_tpu.evaluation.knn import knn_mse as jax_knn_mse
+    from srl_zoo_tpu_torch.evaluation.knn import centre, knn_mse
+    rng = np.random.RandomState(7)
+    n, d, k = 300, 16, 5
+    states = (1e3 + 1e-2 * rng.randn(n, d)).astype(np.float32)
+    gt = rng.randn(n, 3).astype(np.float32)
+    s64 = states.astype(np.float64)
+    d2 = ((s64[:, None, :] - s64[None, :, :]) ** 2).sum(-1)
+    np.fill_diagonal(d2, np.inf)
+    exact_nb = np.argsort(d2, axis=1, kind="stable")[:, :k]
+    exact = float(np.mean(np.square(gt[:, None, :] - gt[exact_nb])))
+
+    score, _, nbrs = knn_mse(states, gt, k=k, device="cpu")
+    np.testing.assert_array_equal(nbrs, exact_nb)
+    np.testing.assert_allclose(score, exact, rtol=1e-6)
+
+    t = torch.from_numpy(states)
+    raw = knn_topk_plain(t, t, k + 1)[1].numpy()
+    centred = knn_topk_plain(centre(t), centre(t), k + 1)[1].numpy()
+    want = np.concatenate([np.arange(n)[:, None], exact_nb], axis=1)
+    np.testing.assert_array_equal(centred, want)
+    assert (raw != want).any(axis=1).mean() > 0.5
+    jax_score, _, jax_nbrs = jax_knn_mse(states, gt, k=k)
+    assert (jax_nbrs != exact_nb).any(axis=1).mean() > 0.5
+    assert abs(jax_score - exact) > 0.05 * exact
+
+
+def test_knn_mse_takes_k_above_the_kernel_limit_on_cpu():
+    """k + 1 > MAX_K: the GPU kernel (and the JAX package) refuse it, the
+    CPU path does not. Small integer states with a mean of exactly 0 (so
+    centring moves nothing) make every float32 distance exact, so the
+    float64 order (ties to the lowest index) is the answer."""
+    from srl_zoo_tpu_torch.evaluation.knn import knn_mse
+    from srl_zoo_tpu_torch.ops.knn_topk import MAX_K
+    rng = np.random.RandomState(8)
+    n, k = 200, MAX_K
+    half = rng.randint(-4, 5, (n // 2, 8)).astype(np.float32)
+    states = np.concatenate([half, -half])
+    gt = rng.randn(n, 3).astype(np.float32)
+    s64 = states.astype(np.float64)
+    d2 = ((s64[:, None, :] - s64[None, :, :]) ** 2).sum(-1)
+    np.fill_diagonal(d2, -1.0)  # self first, then dropped
+    exact_nb = np.argsort(d2, axis=1, kind="stable")[:, 1:k + 1]
+    exact = float(np.mean(np.square(gt[:, None, :] - gt[exact_nb])))
+    score, _, nbrs = knn_mse(states, gt, k=k, device="cpu")
+    np.testing.assert_array_equal(nbrs, exact_nb)
+    np.testing.assert_allclose(score, exact, rtol=1e-6)
+
+
 # ---------------------------------------------------------------------------
 # the HTTP server
 # ---------------------------------------------------------------------------
@@ -199,6 +255,41 @@ def test_server_rejects_a_body_that_is_not_npy(server):
     with pytest.raises(urllib.error.HTTPError) as e:
         urllib.request.urlopen(req, timeout=30)
     assert e.value.code == 400
+
+
+@pytest.mark.parametrize("coalesce_ms", [0, 5])
+def test_server_encodes_on_one_warmed_thread(port_run, synthetic_dataset,
+                                             monkeypatch, coalesce_ms):
+    """Warm-up and requests encode on the same long-lived thread, so a
+    client never pays for the per-thread cuDNN state the warm-up built."""
+    from srl_zoo_tpu_torch.serve import build_server
+    threads = []
+    encode = StateEncoder.encode
+
+    def recording_encode(self, obs):
+        threads.append(threading.get_ident())
+        return encode(self, obs)
+
+    monkeypatch.setattr(StateEncoder, "encode", recording_encode)
+    srv = build_server(port_run, port=0, max_batch=4,
+                       coalesce_ms=coalesce_ms, device="cpu")
+    assert len(threads) == 4 and threading.get_ident() not in threads
+    assert srv.request_queue_size >= 64  # a burst of clients is not dropped
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    try:
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+        frames = np.asarray(synthetic_dataset.frames[:3])
+        code, one = _post(url, frames[0])
+        assert code == 200
+        code, many = _post(url, frames)
+        assert code == 200
+        np.testing.assert_allclose(many[0], one, rtol=0, atol=1e-5)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        t.join(10)
+    assert len(threads) == 6 and len(set(threads)) == 1
 
 
 # ---------------------------------------------------------------------------
