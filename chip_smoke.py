@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's inference path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's inference and training paths on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -9,29 +10,47 @@ must pass (else the exit code is 1 and no result line is printed):
 
 1. The card's name and power limit (nvidia-smi); the kernels' build time.
 2. Each kernel against its plain PyTorch version on the card, at the shapes
-   the main path gives it, timed beside its bound:
+   the main paths give it, timed beside its bound:
    relu + pool (K1) at the three pools of a config-1 forward, at the
    serve batch (32; f32 and bf16) and the export batch (256; f32), y and
-   argmax exact; gather + normalize (K2) of 256 random rows
-   of a 20,000-frame 224x224x3 store, both modes, 1e-6; distance + top-k
-   (K3) at Q=4,096, N=20,000, D=200, k=6, distances within 1e-4 relative
-   and indices equal except at ties within that tolerance (counted).
-3. The slice at the full width of config 1 (custom_cnn, 224x224x3,
-   state_dim 200), from a seeded random model saved as a run folder: the
-   HTTP server (coalescing 5 ms, max batch 32) answers two rounds of 8
-   concurrent single frames and 2 batches of 16, the first as a fresh
-   server's first clients see it; states are exported for the
-   20,000-frame store in batches of 256; KNN-MSE (k=5) scores 4,096 sampled queries.
-   Kernel launch counts are zeroed just before and read just after; every
-   kernel must have run. Then the replies are held against a direct encode
-   (1e-5), 64 exported rows against a direct encode (1e-5), and the score
-   against the plain top-k's (1e-6), and an export of 2,048 rows is
-   profiled (device time by kernel, busy share).
-4. A ``{"kernels": [...]}`` line, the nvidia-smi line, and last
-   ``{"ok": true, "device": {...}}``.
+   argmax exact; its backward (K1b) at the three pools of a batch-32 train
+   step, exact on integer-valued inputs (f32 and bf16) and within 1e-6 of
+   the largest |g| on random floats; gather + normalize (K2) of 256 random
+   rows of a 20,000-frame 224x224x3 store, both modes, 1e-6; distance +
+   top-k (K3) at Q=4,096, N=20,000, D=200, k=6, distances within 1e-4
+   relative and indices equal except at ties within that tolerance
+   (counted).
+3. The inference path at the full width of config 1 (custom_cnn,
+   224x224x3, state_dim 200), from a seeded random model saved as a run
+   folder: the HTTP server (coalescing 5 ms, max batch 32) answers two
+   rounds of 8 concurrent single frames and 2 batches of 16, the first as
+   a fresh server's first clients see it; states are exported for the
+   20,000-frame store in batches of 256; KNN-MSE (k=5) scores 4,096
+   sampled queries. Kernel launch counts are zeroed just before and read
+   just after; K1, K2 and K3 must have run. Then the replies are held
+   against a direct encode (1e-5), 64 exported rows against a direct
+   encode (1e-5), and the score against the plain top-k's (1e-6), and an
+   export of 2,048 rows is profiled (device time by kernel, busy share).
+4. Training. One train step of config 1 on the card against the same step
+   on the CPU (plain versions), batch 8 at 224 px, from the same weights
+   (loss 1e-5 relative, gradients 1e-3 of their scale). A 4,096-frame
+   224x224x3 dataset folder with structure is written, and the train CLI
+   (``srl_zoo_tpu_torch.train.main``) trains config 1 on it for 3 epochs
+   at batch 32, exports its states and scores GTC; launch counts are zeroed
+   just before and read just after, and K1, K1b and K2 must have run. The
+   training loss must fall and the exported states must match a direct
+   encode (1e-5); train images/s and export states/s are printed. Then
+   each pool's input must be channels_last (the pool reads it in place),
+   and 8 train steps are profiled (device time by kernel, busy share,
+   layout transposes and the operations that launch them).
+5. A ``{"kernels": [...]}`` line (launches summed over both paths), the
+   nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
 Bounds use the H100 SXM data-sheet rates at 700 W: 3.35 TB/s of device
-memory and 67 TFLOP/s of float32 outside the tensor cores.
+memory and 67 TFLOP/s of float32 outside the tensor cores. No single
+PyTorch call computes any of the four kernels' functions (K1b:
+``max_pool2d_with_indices_backward`` takes int64 indices and has no relu
+mask), so ``library_ms`` is null.
 """
 
 from __future__ import annotations
@@ -55,6 +74,16 @@ IMG = (224, 224, 3)
 STATE_DIM = 200
 SERVE_BATCH = 32
 SEED = 0
+# training: config 1's batch, a structured dataset written here, and the
+# batch of the card-vs-CPU step
+TRAIN_BATCH = 32
+TRAIN_FRAMES = 4096
+TRAIN_EPISODES = 16
+TRAIN_EPOCHS = 3
+CPU_STEP_BATCH = 8
+PROFILE_STEPS = 8
+INFERENCE_KERNELS = ("relu_max_pool", "gather_normalize", "knn_topk")
+TRAINING_KERNELS = ("relu_max_pool", "relu_max_pool_bwd", "gather_normalize")
 
 
 def log(msg: str) -> None:
@@ -142,6 +171,66 @@ def check_pool(dev, g) -> dict:
             f"{t['ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, bound "
             f"{b:.4f} ms by {by})")
     return totals
+
+
+def check_pool_bwd(dev, g) -> dict:
+    """K1's backward against its plain version at the three pools of a
+    config-1 train step (batch 32, f32): exact on integer-valued inputs
+    and cotangents (every sum exact), and within 1e-6 of the largest |g|
+    on random floats (both add the nine window positions in raster order
+    in f32, so 0 is expected); bf16 on integer values, exact. Returns the
+    f32 sums of the three pools."""
+    import torch
+    from srl_zoo_tpu_torch.ops.fused_pool import (relu_max_pool_bwd,
+                                                  relu_max_pool_bwd_plain,
+                                                  relu_max_pool_plain)
+    pools = (IMG[0] // 2, IMG[0] // 8, IMG[0] // 32)  # 112, 28, 7 at 224
+    t = dict.fromkeys(("ms", "plain_ms", "bytes", "ops", "err"), 0.0)
+    for hw in pools:
+        shape = (TRAIN_BATCH, hw, hw, 64)
+        for kind, dtype in (("integer", torch.float32),
+                            ("random", torch.float32),
+                            ("integer", torch.bfloat16)):
+            if kind == "integer":
+                x = torch.randint(-2, 3, shape, generator=g, device=dev)
+            else:
+                x = torch.randn(shape, generator=g, device=dev)
+            x = x.to(dtype)
+            _, idx = relu_max_pool_plain(x, with_index=True)
+            gshape = idx.shape
+            gy = (torch.randint(-8, 9, gshape, generator=g, device=dev)
+                  if kind == "integer" else
+                  torch.randn(gshape, generator=g, device=dev)).to(dtype)
+            dx = relu_max_pool_bwd(gy, idx, shape)
+            ref = relu_max_pool_bwd_plain(gy, idx, shape)
+            torch.cuda.synchronize()
+            err = float((dx.float() - ref.float()).abs().max())
+            tol = 0.0 if kind == "integer" else \
+                1e-6 * float(gy.float().abs().max())
+            if not err <= tol:
+                raise AssertionError(f"relu_max_pool_bwd {shape} {kind} "
+                                     f"{dtype}: max err {err} > {tol}")
+            if dtype != torch.float32 or kind != "random":
+                continue
+            ms = time_ms(lambda: relu_max_pool_bwd(gy, idx, shape))
+            plain = time_ms(lambda: relu_max_pool_bwd_plain(gy, idx, shape))
+            # read g and idx once per output, write dx once per input
+            nbytes = gy.numel() * (4 + 1) + dx.numel() * 4
+            ops = 8 * dx.numel()  # <= 4 compares and 4 adds per input
+            b, by = bound(nbytes, ops)
+            log(f"K1b relu_max_pool_bwd {shape} f32: integer inputs exact, "
+                f"random max err {err:.3g}; {ms:.4f} ms (plain {plain:.4f} "
+                f"ms, bound {b:.4f} ms by {by})")
+            t["ms"] += ms
+            t["plain_ms"] += plain
+            t["bytes"] += nbytes
+            t["ops"] += ops
+            t["err"] = max(t["err"], err)
+    b, by = bound(t["bytes"], t["ops"])
+    log(f"K1b relu_max_pool_bwd f32, the three pools of a train step: "
+        f"{t['ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, bound {b:.4f} ms "
+        f"by {by}, {t['bytes'] / 1e6:.1f} MB); bf16 exact too")
+    return t
 
 
 def check_gather(store, dev, g) -> dict:
@@ -361,9 +450,9 @@ def run_slice(run_dir, frames_np, store, gt, counters) -> dict:
         f"({len(states) / export_s:.0f} frames/s, batches of 256)")
     log(f"knn_mse(k=5, 4096 queries of {len(states)}): {score:.6f} in "
         f"{knn_s * 1e3:.1f} ms")
-    log(f"main-path launches: {launches}")
-    if not all(v > 0 for v in launches.values()):
-        raise AssertionError(f"a kernel never ran on the main path: "
+    log(f"inference path launches: {launches}")
+    if not all(launches[k] > 0 for k in INFERENCE_KERNELS):
+        raise AssertionError(f"a kernel never ran on the inference path: "
                              f"{launches}")
 
     # --- outputs against direct encodes and the plain top-k ----------------
@@ -397,6 +486,259 @@ def run_slice(run_dir, frames_np, store, gt, counters) -> dict:
     log(f"knn_mse vs plain top-k: {score:.9f} vs {plain_score:.9f}")
     profile_export(encoder, store)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 4: training
+# ---------------------------------------------------------------------------
+
+def write_train_dataset(folder: str) -> None:
+    """A dataset folder of TRAIN_FRAMES 224x224x3 frames in TRAIN_EPISODES
+    episodes: a red square walks on a shaded background, and its centre
+    (scaled to [0, 1]) is the ground truth; a reward of 1 near the middle."""
+    import os
+    rng = np.random.RandomState(SEED)
+    n, (h, w, c) = TRAIN_FRAMES, IMG
+    ep_len = n // TRAIN_EPISODES
+    actions = rng.randint(0, 4, n).astype(np.int32)
+    moves = np.array([[0, 6], [0, -6], [6, 0], [-6, 0]])
+    pos = np.empty((n, 2))
+    for e in range(TRAIN_EPISODES):
+        s = slice(e * ep_len, (e + 1) * ep_len)
+        walk = rng.uniform(40, h - 40, 2) + np.cumsum(moves[actions[s]], 0)
+        pos[s] = np.clip(walk, 14, h - 15)
+    starts = np.zeros(n, bool)
+    starts[::ep_len] = True
+    gt = (pos / h).astype(np.float32)
+    rewards = (np.abs(gt - 0.5).max(axis=1) < 0.1).astype(np.float32)
+    os.makedirs(folder, exist_ok=True)
+    np.savez(os.path.join(folder, "preprocessed_data.npz"), actions=actions,
+             rewards=rewards, episode_starts=starts)
+    np.savez(os.path.join(folder, "ground_truth.npz"),
+             ground_truth_states=gt,
+             images_path=np.array([f"frame{i:06d}.jpg" for i in range(n)]))
+    frames = np.lib.format.open_memmap(os.path.join(folder, "frames.npy"),
+                                       mode="w+", dtype=np.uint8,
+                                       shape=(n, h, w, c))
+    yy = np.arange(h)[None, :, None]
+    xx = np.arange(w)[None, None, :]
+    shade = (60 + 80 * yy / h + 40 * xx / w).astype(np.uint8)[0]
+    for s in range(0, n, 256):
+        p = pos[s:s + 256]
+        sq = (np.abs(yy - p[:, 0, None, None]) < 12) & \
+            (np.abs(xx - p[:, 1, None, None]) < 12)
+        block = np.empty((len(p), h, w, c), np.uint8)
+        block[:] = shade[None, :, :, None]
+        block[sq] = (220, 40, 40)
+        frames[s:s + 256] = block
+    frames.flush()
+    del frames
+
+
+def check_train_step_on_cpu(dev) -> None:
+    """One train-mode forward + backward of config 1 at 224 px, batch
+    CPU_STEP_BATCH, from the same weights and frames on the card (kernels,
+    f32), on the CPU (plain versions, f32) and on the CPU in float64. At
+    this geometry the train-mode BatchNorm backwards cancel heavily, and
+    f32 gradients stray from the float64 ones by ~1e-3 of their scale on
+    either device. So the card's step is held to the float64 one within
+    twice the CPU f32 step's worst deviation (+1e-5): its loss, and each
+    gradient relative to its tensor's largest float64 magnitude (a bias in
+    front of a train-mode BatchNorm has an exact gradient of 0; there the
+    scale is 1e-2 of the model's largest gradient)."""
+    import copy
+
+    import torch
+    from srl_zoo_tpu_torch.config import SRLConfig
+    from srl_zoo_tpu_torch.ops.gather_norm import gather_normalize
+    from srl_zoo_tpu_torch.training.state import make_model
+    cfg = SRLConfig(state_dim=STATE_DIM, img_height=IMG[0], img_width=IMG[1],
+                    batch_size=CPU_STEP_BATCH, seed=SEED)
+    frames = torch.from_numpy(np.random.RandomState(SEED).randint(
+        0, 256, (CPU_STEP_BATCH,) + IMG).astype(np.uint8))
+    cpu = make_model(cfg, torch.device("cpu"))
+    runs = (("card", copy.deepcopy(cpu).to(
+        dev, memory_format=torch.channels_last), dev, torch.float32),
+        ("cpu", copy.deepcopy(cpu), torch.device("cpu"), torch.float32),
+        ("f64", cpu.double(), torch.device("cpu"), torch.float64))
+    res = {}
+    for name, model, d, dt in runs:
+        store = frames.to(d)
+        obs = gather_normalize(store, torch.arange(CPU_STEP_BATCH,
+                                                   device=d)).to(dt)
+        model.train()
+        loss = (model(obs)["recon"] - obs).square().mean()
+        loss.backward()
+        res[name] = (float(loss.detach()),
+                     {k: p.grad.detach().double().cpu()
+                      for k, p in model.named_parameters()})
+    l64, g64 = res["f64"]
+    floor = 1e-2 * max(float(v.abs().max()) for v in g64.values())
+    dev_of = {}
+    for name in ("card", "cpu"):
+        loss, grads = res[name]
+        dev_of[name] = (abs(loss - l64) / abs(l64), max(
+            float((grads[k] - g64[k]).abs().max())
+            / max(float(g64[k].abs().max()), floor) for k in g64))
+    (lc, gc), (lp, gp) = dev_of["card"], dev_of["cpu"]
+    if lc > 2 * lp + 1e-5 or gc > 2 * gp + 1e-5:
+        raise AssertionError(f"train step against float64: card loss "
+                             f"{lc:.3g} gradients {gc:.3g}, CPU f32 loss "
+                             f"{lp:.3g} gradients {gp:.3g}")
+    log(f"train step at batch {CPU_STEP_BATCH}, {IMG[0]} px, against the "
+        f"float64 step: card loss {lc:.3g}, gradients {gc:.3g} of their "
+        f"scale; CPU f32 loss {lp:.3g}, gradients {gp:.3g}")
+
+
+def profile_training(dev, data_folder: str) -> None:
+    """Device time by kernel, and the device's busy share, over
+    PROFILE_STEPS train steps of config 1 at batch 32 (torch.profiler),
+    and the layout transposes among them (channels_last keeps them out)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from srl_zoo_tpu_torch.config import SRLConfig
+    from srl_zoo_tpu_torch.data.device_cache import build_cache
+    from srl_zoo_tpu_torch.data.loader import DataLoader
+    from srl_zoo_tpu_torch.data.schema import load_dataset
+    from srl_zoo_tpu_torch.training.state import make_model, make_optimizer
+    from srl_zoo_tpu_torch.training.train_step import train_step
+    cfg = SRLConfig(state_dim=STATE_DIM, img_height=IMG[0], img_width=IMG[1],
+                    batch_size=TRAIN_BATCH, seed=SEED)
+    dataset = load_dataset(data_folder)
+    store = build_cache(dataset, dev)["frames"]
+    model = make_model(cfg, dev)
+    opt = make_optimizer(cfg, model)
+    batches = iter(DataLoader(dataset, dataset.training_indices(),
+                              TRAIN_BATCH, seed=SEED))
+    train_step(model, opt, store, next(batches))  # warm: cuDNN plans
+    # each pool reads the NHWC view of its BatchNorm's output: that view
+    # is the tensor itself (no copy) only if the output is channels_last
+    layouts = []
+    hooks = [bn.register_forward_hook(lambda m, i, out: layouts.append(
+        out.is_contiguous(memory_format=torch.channels_last)))
+        for bn in model.encoder.bns]
+    train_step(model, opt, store, next(batches))
+    for h in hooks:
+        h.remove()
+    if layouts != [True] * len(model.encoder.bns):
+        raise AssertionError(f"a pool's input is not channels_last, so the "
+                             f"pool reads a copy: {layouts}")
+    log(f"the {len(layouts)} pools read their BatchNorm outputs in place "
+        "(channels_last)")
+    steps = [next(batches) for _ in range(PROFILE_STEPS)]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for batch in steps:
+            train_step(model, opt, store, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # a range such as the optimizer's "Optimizer.step#Adam.step" shows on
+    # the device as a span from its first to its last kernel, idle gaps
+    # included; its kernels are listed on their own, so it is left out
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0
+               and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith("Optimizer.")]
+    busy = sum(e.self_device_time_total for e in kernels)
+    log(f"profile train {PROFILE_STEPS} steps of batch {TRAIN_BATCH}: wall "
+        f"{wall_us / 1e3:.2f} ms ({wall_us / 1e3 / PROFILE_STEPS:.2f} ms per "
+        f"step), device busy {busy / 1e3:.2f} ms "
+        f"({100 * busy / wall_us:.1f}%), idle "
+        f"{100 * (1 - busy / wall_us):.1f}%")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:14]:
+        log(f"  {e.self_device_time_total / 1e3:8.3f} ms "
+            f"{100 * e.self_device_time_total / busy:5.1f}% x{e.count:<4d} "
+            f"{e.key[:90]}")
+    layout = [e for e in kernels if is_transpose(e.key)]
+    lt = sum(e.self_device_time_total for e in layout)
+    log(f"  layout transposes (nchw<->nhwc): {sum(e.count for e in layout)} "
+        f"launches of {len(layout)} kernels, {lt / 1e3:.3f} ms "
+        f"({100 * lt / max(busy, 1e-9):.1f}% of busy)")
+
+    # which operations launch them: one more step, with input shapes
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        train_step(model, opt, store, steps[0])
+        torch.cuda.synchronize()
+    by_op = {}
+    for e in prof.events():
+        n = sum(is_transpose(k.name) for k in e.kernels)
+        if n:
+            key = f"{e.name} {e.input_shapes[:2]}"
+            by_op[key] = by_op.get(key, 0) + n
+    for key, n in sorted(by_op.items(), key=lambda kv: -kv[1]):
+        log(f"  transposes in one step: x{n:<3d} from {key}")
+
+
+def is_transpose(name: str) -> bool:
+    return "nchwToNhwc" in name or "nhwcToNchw" in name
+
+
+def run_training(data_folder: str, run_dir: str, counters) -> dict:
+    """Config 1 trained through the CLI entry point for TRAIN_EPOCHS epochs
+    at batch 32 on the card, with the launch counts zeroed just before and
+    read just after; then its outputs are checked."""
+    import os
+
+    from srl_zoo_tpu_torch import train as train_cli
+    from srl_zoo_tpu_torch.data.device_cache import build_cache
+    from srl_zoo_tpu_torch.data.schema import load_dataset
+    from srl_zoo_tpu_torch.evaluation.predict_dataset import predict_states
+    from srl_zoo_tpu_torch.inference import StateEncoder
+    # --- the training path, with the launch counts zeroed just before -----
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    train_cli.main(["--data-folder", data_folder, "--losses", "autoencoder",
+                    "--model-type", "custom_cnn", "--state-dim",
+                    str(STATE_DIM), "-bs", str(TRAIN_BATCH), "--epochs",
+                    str(TRAIN_EPOCHS), "--log-folder", run_dir])
+    train_s = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    # --- end of the training path -----------------------------------------
+    log(f"train CLI ({TRAIN_EPOCHS} epochs, export, GTC) in {train_s:.1f} s")
+    log(f"training path launches: {launches}")
+    if not all(launches[k] > 0 for k in TRAINING_KERNELS):
+        raise AssertionError(f"a kernel never ran on the training path: "
+                             f"{launches}")
+    hist = np.load(os.path.join(run_dir, "loss_history.npz"))
+    log(f"train/total by epoch: {hist['train/total'].tolist()}; val/total: "
+        f"{hist['val/total'].tolist()}")
+    if not hist["train/total"][-1] < hist["train/total"][0]:
+        raise AssertionError("the training loss did not fall")
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        ips = [json.loads(line)["images_per_sec"] for line in f]
+    log(f"train images/s by epoch: {[round(v, 1) for v in ips]}")
+    states = np.load(os.path.join(run_dir, "states_rewards.npz"))["states"]
+    if states.shape != (TRAIN_FRAMES, STATE_DIM) or \
+            not np.isfinite(states).all():
+        raise AssertionError(f"states_rewards.npz: {states.shape} or "
+                             "non-finite")
+    with open(os.path.join(run_dir, "gtc.txt")) as f:
+        log(f"GTC after {TRAIN_EPOCHS} epochs: {f.read().strip()}")
+    dataset = load_dataset(data_folder)
+    encoder = StateEncoder.load(run_dir)
+    # export batches of 256 and encode chunks of 32 take different cuDNN
+    # algorithms: f32 rounding, relative to the states' scale
+    direct = encoder.encode(np.asarray(dataset.frames[:64]))
+    err = float(np.abs(states[:64] - direct).max() / np.abs(direct).max())
+    if not err <= 1e-5:
+        raise AssertionError(f"exported states differ from encode: {err} "
+                             "of their largest magnitude")
+    store = build_cache(dataset, encoder.device)["frames"]
+    predict_states(encoder, store)  # warm; returns host arrays (synced)
+    t0 = time.perf_counter()
+    predict_states(encoder, store)
+    export_s = time.perf_counter() - t0
+    log(f"trained model: export vs direct encode max err {err:.3g} of the "
+        f"largest |state|; "
+        f"{TRAIN_FRAMES / export_s:.0f} states/s (export of "
+        f"{TRAIN_FRAMES} rows in batches of 256)")
+    return launches
+
 
 
 def main() -> int:
@@ -447,17 +789,31 @@ def main() -> int:
             f"{time.perf_counter() - t0:.1f} s")
 
         stats = {"relu_max_pool": check_pool(dev, g)["export"],
+                 "relu_max_pool_bwd": check_pool_bwd(dev, g),
                  "gather_normalize": check_gather(store, dev, g),
                  "knn_topk": check_knn(dev, g)}
 
         cfg = SRLConfig(state_dim=STATE_DIM, img_height=IMG[0],
                         img_width=IMG[1])
         counters = {"relu_max_pool": fused_pool.relu_max_pool,
+                    "relu_max_pool_bwd": fused_pool.relu_max_pool_bwd,
                     "gather_normalize": gather_norm.gather_normalize,
                     "knn_topk": knn_topk.knn_topk_with_dist}
         with tempfile.TemporaryDirectory() as run_dir:
             save_srl_model(run_dir, random_model(cfg, SEED))
-            launches = run_slice(run_dir, frames_np, store, gt, counters)
+            inference = run_slice(run_dir, frames_np, store, gt, counters)
+        del store, frames_np
+
+        check_train_step_on_cpu(dev)
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            write_train_dataset(f"{tmp}/data")
+            log(f"training dataset ({TRAIN_FRAMES} frames of "
+                f"{TRAIN_EPISODES} episodes) written in "
+                f"{time.perf_counter() - t0:.1f} s")
+            training = run_training(f"{tmp}/data", f"{tmp}/run", counters)
+            profile_training(dev, f"{tmp}/data")
+        launches = {k: inference[k] + training[k] for k in counters}
     except Exception:
         traceback.print_exc()
         return 1
@@ -465,6 +821,8 @@ def main() -> int:
     meta = {
         "relu_max_pool": ("srl_zoo_tpu_torch/csrc/fused_pool.cu",
                           "srl_zoo_tpu/ops/fused_pool.py:242"),
+        "relu_max_pool_bwd": ("srl_zoo_tpu_torch/csrc/fused_pool_bwd.cu",
+                              "srl_zoo_tpu/ops/fused_pool.py:275"),
         "gather_normalize": ("srl_zoo_tpu_torch/csrc/gather_norm.cu",
                              "srl_zoo_tpu/ops/gather_norm.py:44"),
         "knn_topk": ("srl_zoo_tpu_torch/csrc/knn_topk.cu",

@@ -1,15 +1,22 @@
-"""Weight bridge: a JAX run's encoder weights as the port's state dict.
+"""Weight bridge: a JAX run's weights as the port's state dict.
 
 ``state_dict_from_jax`` maps the JAX package's nested ``params`` /
 ``batch_stats`` dicts (numpy leaves) onto :class:`SRLModules`:
 
     params/encoder/Conv_i/kernel          HWIO -> encoder.convs.i.weight OIHW
-    params/encoder/BatchNorm_i/scale,bias      -> encoder.bns.i.weight,bias
-    batch_stats/encoder/BatchNorm_i/mean,var   -> encoder.bns.i.running_mean,var
-    params/encoder/Dense_0/kernel,bias  (in,out) -> encoder.fc.weight (out,in),bias
+    params/{encoder,decoder}/BatchNorm_i/scale,bias -> *.bns.i.weight,bias
+    batch_stats/{encoder,decoder}/BatchNorm_i/mean,var
+                                          -> *.bns.i.running_mean,var
+    params/{encoder,decoder}/Dense_0/kernel,bias (in,out)
+                                          -> *.fc.weight (out,in),bias
+    params/decoder/ConvTranspose_i/kernel (kh,kw,in,out)
+                     -> decoder.deconvs.i.weight (in,out,kh,kw), flipped on
+                        both spatial axes (models/decoders.py)
+    params/decoder/ConvTranspose_i/bias   -> decoder.deconvs.i.bias
 
-Subtrees this slice does not port (decoder, heads) come back as a list of
-skipped keys. Convert a run folder in place:
+Subtrees the port does not run yet (the heads of other losses) come back
+as a list of skipped keys; a config-1 run skips none. Convert a run folder
+in place:
 
     python -m srl_zoo_tpu_torch.bridge --log-folder logs/<run>
 
@@ -28,6 +35,8 @@ import numpy as np
 import torch
 
 from srl_zoo_tpu_torch.config import SRLConfig
+from srl_zoo_tpu_torch.models.decoders import WIDTHS as DECODER_WIDTHS
+from srl_zoo_tpu_torch.models.decoders import deconv_weight_from_flax
 from srl_zoo_tpu_torch.models.encoders import KERNEL_SIZES
 
 _MSGPACK_NDARRAY = 1  # flax's ext type: packed (shape, dtype name, C bytes)
@@ -42,6 +51,15 @@ def _flatten(tree: Dict, prefix: str = "") -> Dict[str, np.ndarray]:
         else:
             out[key] = v
     return out
+
+
+def _take_bn(sd: Dict[str, torch.Tensor], take, bn: str, jax_name: str
+             ) -> None:
+    sd[f"{bn}.weight"] = take(f"params/{jax_name}/scale")
+    sd[f"{bn}.bias"] = take(f"params/{jax_name}/bias")
+    sd[f"{bn}.running_mean"] = take(f"batch_stats/{jax_name}/mean")
+    sd[f"{bn}.running_var"] = take(f"batch_stats/{jax_name}/var")
+    sd[f"{bn}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
 
 
 def state_dict_from_jax(params: Dict, batch_stats: Dict
@@ -60,17 +78,23 @@ def state_dict_from_jax(params: Dict, batch_stats: Dict
     for i in range(len(KERNEL_SIZES)):
         sd[f"encoder.convs.{i}.weight"] = take(
             f"params/encoder/Conv_{i}/kernel").permute(3, 2, 0, 1).contiguous()
-        bn = f"encoder.bns.{i}"
-        sd[f"{bn}.weight"] = take(f"params/encoder/BatchNorm_{i}/scale")
-        sd[f"{bn}.bias"] = take(f"params/encoder/BatchNorm_{i}/bias")
-        sd[f"{bn}.running_mean"] = take(f"batch_stats/encoder/BatchNorm_{i}/mean")
-        sd[f"{bn}.running_var"] = take(f"batch_stats/encoder/BatchNorm_{i}/var")
-        sd[f"{bn}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+        _take_bn(sd, take, f"encoder.bns.{i}", f"encoder/BatchNorm_{i}")
     sd["encoder.fc.weight"] = take("params/encoder/Dense_0/kernel").T.contiguous()
     sd["encoder.fc.bias"] = take("params/encoder/Dense_0/bias")
-    unknown = [k for k in flat if k.split("/")[1] == "encoder"]
+    if "params/decoder/Dense_0/kernel" in flat:
+        sd["decoder.fc.weight"] = take(
+            "params/decoder/Dense_0/kernel").T.contiguous()
+        sd["decoder.fc.bias"] = take("params/decoder/Dense_0/bias")
+        for i in range(len(DECODER_WIDTHS) + 1):
+            d = f"decoder.deconvs.{i}"
+            sd[f"{d}.weight"] = deconv_weight_from_flax(
+                take(f"params/decoder/ConvTranspose_{i}/kernel"))
+            sd[f"{d}.bias"] = take(f"params/decoder/ConvTranspose_{i}/bias")
+        for i in range(len(DECODER_WIDTHS)):
+            _take_bn(sd, take, f"decoder.bns.{i}", f"decoder/BatchNorm_{i}")
+    unknown = [k for k in flat if k.split("/")[1] in ("encoder", "decoder")]
     if unknown:
-        raise KeyError(f"encoder weights the port does not know: {unknown}")
+        raise KeyError(f"weights the port does not know: {unknown}")
     return sd, sorted(flat)
 
 

@@ -3,8 +3,11 @@
 A dataset folder holds ``preprocessed_data.npz`` (actions, rewards,
 episode_starts), ``ground_truth.npz`` (ground_truth_states, images_path)
 and, for the device-resident path, the ``frames.npy`` (N, H, W, C) uint8
-decode cache. This slice reads frames only from that cache: JPEG decode
+decode cache. This port reads frames only from that cache: JPEG decode
 (cv2) waits for a later slice.
+
+Reward convention: ``rewards[t]`` is the reward upon ARRIVING at frame t,
+so transition t = (frame t, action t, frame t+1) reads ``rewards[t + 1]``.
 """
 
 from __future__ import annotations
@@ -17,6 +20,12 @@ from typing import Optional
 import numpy as np
 
 
+def discretize_rewards(rewards: np.ndarray) -> np.ndarray:
+    """Raw rewards -> contiguous class ids 0..K-1 by sorted unique value."""
+    uniq = np.unique(rewards)
+    return np.searchsorted(uniq, rewards).astype(np.int32)
+
+
 @dataclasses.dataclass
 class Dataset:
     data_folder: str
@@ -24,10 +33,37 @@ class Dataset:
     rewards: np.ndarray              # (N,) float32
     ground_truth_states: np.ndarray  # (N, d) float32
     frames: Optional[np.ndarray] = None  # (N, H, W, C) uint8 memmap
+    # (N,) bool; None means one episode that starts at row 0
+    episode_starts: Optional[np.ndarray] = None
+    # (N,) int32 discretized rewards; None derives them from ``rewards``
+    reward_classes: Optional[np.ndarray] = None
+
+    def __post_init__(self):
+        if self.episode_starts is None:
+            self.episode_starts = np.zeros(len(self.actions), bool)
+            self.episode_starts[:1] = True
+        if self.reward_classes is None:
+            self.reward_classes = discretize_rewards(self.rewards)
 
     @property
     def n_samples(self) -> int:
         return len(self.actions)
+
+    @property
+    def n_actions(self) -> int:
+        return int(self.actions.max()) + 1
+
+    @property
+    def n_reward_classes(self) -> int:
+        return int(self.reward_classes.max()) + 1
+
+    def training_indices(self) -> np.ndarray:
+        """Rows i for which (i, i+1) is a within-episode transition: the
+        last frame of each episode is dropped."""
+        valid = np.ones(self.n_samples, dtype=bool)
+        valid[-1] = False
+        valid[:-1] &= ~self.episode_starts[1:]
+        return np.nonzero(valid)[0].astype(np.int32)
 
 
 def _load_frames_checked(path: str, n: int) -> Optional[np.ndarray]:
@@ -53,10 +89,12 @@ def load_dataset(data_folder: str) -> Dataset:
                  allow_pickle=True)
     actions = pre["actions"].astype(np.int32)
     rewards = pre["rewards"].astype(np.float32)
+    episode_starts = pre["episode_starts"].astype(bool)
     gts = gt["ground_truth_states"].astype(np.float32)
     images_path = np.asarray(gt["images_path"]).astype(str)
     n = len(actions)
-    for name, arr in [("rewards", rewards), ("ground_truth_states", gts),
+    for name, arr in [("rewards", rewards), ("episode_starts", episode_starts),
+                      ("ground_truth_states", gts),
                       ("images_path", images_path)]:
         if len(arr) != n:
             raise ValueError(f"Dataset field '{name}' has length {len(arr)}, "
@@ -64,7 +102,9 @@ def load_dataset(data_folder: str) -> Dataset:
     fpath = os.path.join(data_folder, "frames.npy")
     frames = _load_frames_checked(fpath, n) if os.path.exists(fpath) else None
     return Dataset(data_folder=data_folder, actions=actions, rewards=rewards,
-                   ground_truth_states=gts, frames=frames)
+                   ground_truth_states=gts, frames=frames,
+                   episode_starts=episode_starts,
+                   reward_classes=discretize_rewards(rewards))
 
 
 def save_states_rewards(log_folder: str, states: np.ndarray,

@@ -1,8 +1,8 @@
 """CustomCNN encoder (port of ``srl_zoo_tpu/models/encoders.py`` CustomCNN).
 
-Three blocks of [conv 64, kernel 7/3/3, stride 2, no bias -> BatchNorm ->
-relu + 3x3/2 max-pool], flatten, Dense to ``state_dim``. Two details keep
-the JAX weights lined up:
+Three blocks of [conv 64, kernel 7/3/3, stride 2, no bias -> BatchNorm
+(flax momentum ``bn_momentum``) -> relu + 3x3/2 max-pool], flatten, Dense
+to ``state_dim``. Two details keep the JAX weights lined up:
 
 * XLA 'SAME' pads are asymmetric (at 224 px the 7x7 conv pads (2, 3)), which
   ``conv2d(padding=)`` cannot express, so they are applied with ``F.pad``.
@@ -36,19 +36,21 @@ def flat_features(img_height: int, img_width: int) -> int:
 
 class CustomCNN(nn.Module):
     def __init__(self, state_dim: int, in_channels: int, img_height: int,
-                 img_width: int):
+                 img_width: int, bn_momentum: float = 0.9):
         super().__init__()
         self.convs = nn.ModuleList()
         self.bns = nn.ModuleList()
         c = in_channels
         for k in KERNEL_SIZES:
             self.convs.append(nn.Conv2d(c, WIDTH, k, stride=2, bias=False))
-            self.bns.append(BatchNorm(WIDTH))
+            self.bns.append(BatchNorm(WIDTH, bn_momentum))
             c = WIDTH
         self.fc = nn.Linear(flat_features(img_height, img_width), state_dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: normalized float (B, H, W, C) -> (B, state_dim)."""
+        """x: normalized float (B, H, W, C) -> (B, state_dim). The pools
+        are differentiable (ops/fused_pool.py): in training their backward
+        reads the forward's argmax plane."""
         x = x.permute(0, 3, 1, 2)  # NCHW view of channels_last memory
         for conv, bn, k in zip(self.convs, self.bns, KERNEL_SIZES):
             (t, b), (l, r) = (same_pads(x.shape[2], k, 2),

@@ -24,7 +24,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "srl_zoo_tpu_torch"
-SOURCES = ("fused_pool", "gather_norm", "knn_topk")
+SOURCES = ("fused_pool", "fused_pool_bwd", "gather_norm", "knn_topk")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -36,6 +36,8 @@ _F = ctypes.POINTER(ctypes.c_float)
 SIGNATURES = {
     "fused_pool": ("srl_relu_max_pool_fwd",
                    [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "fused_pool_bwd": ("srl_relu_max_pool_bwd",
+                       [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     "gather_norm": ("srl_gather_normalize",
                     [_P, _P, _P, _P, _L, _L, _L, _I, _F, _F, _P]),
     "knn_topk": ("srl_knn_topk",

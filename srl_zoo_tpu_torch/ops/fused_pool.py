@@ -1,18 +1,25 @@
-"""Fused relu + 3x3 stride-2 max-pool over NHWC, with an int8 argmax plane.
+"""Fused relu + 3x3 stride-2 max-pool over NHWC, with an int8 argmax plane,
+and its backward.
 
-Kernel: ``csrc/fused_pool.cu``, which replaces the TPU kernel
-``srl_zoo_tpu/ops/fused_pool.py`` ``_fwd_pallas`` (``_fwd_kernel``). It is
-bound by bytes on the H100 (one read of x, one write of y); the source
-note says how the design meets that.
+Kernels: ``csrc/fused_pool.cu`` (forward), which replaces the TPU kernel
+``srl_zoo_tpu/ops/fused_pool.py`` ``_fwd_pallas`` (``_fwd_kernel``), and
+``csrc/fused_pool_bwd.cu`` (backward), which replaces ``_bwd_pallas``
+(``_bwd_kernel``). Both are bound by bytes on the H100; the source notes
+say how the designs meet that.
 
     y   = max_pool_3x3_stride2(relu(x))          NHWC, pads (lo, hi) per axis
     idx = raster position 0..8 of the first window maximum, 9 when the
           window maximum is <= 0 (relu kills the gradient)
+    dx  = each g routed to its window's argmax, summed where windows overlap
 
-The kernel takes float32, bfloat16 and float16, any H and W, and any pads,
-including the odd 7x7 pool of CustomCNN at 224 px that the JAX package
-sends to XLA. The argmax plane is written only on request: inference
-needs none, and the backward of the training slice will read it.
+The kernels take float32, bfloat16 and float16, any H and W, and any pads
+in [0, 2], including the odd 7x7 pool of CustomCNN at 224 px that the JAX
+package sends to XLA. :func:`relu_max_pool` is differentiable: when a
+gradient is needed, the forward also writes the argmax plane and the
+backward reads it; inference writes no plane. The gradient is XLA's
+select-and-scatter gradient of ``max_pool(relu(x))``: ties go to the first
+maximum in raster order, and nothing flows where the window maximum is
+<= 0.
 """
 
 from __future__ import annotations
@@ -47,7 +54,7 @@ def _out_size(size: int, pad) -> int:
 
 def relu_max_pool_plain(x: torch.Tensor, padding="SAME",
                         with_index: bool = False):
-    """Plain PyTorch version of the kernel, NHWC in and out."""
+    """Plain PyTorch version of the forward kernel, NHWC in and out."""
     (pt, pb), (pl, pr) = _resolve_pads(x.shape[1], x.shape[2], padding)
     xp = F.pad(F.relu(x.permute(0, 3, 1, 2)), (pl, pr, pt, pb),
                value=-float("inf"))
@@ -66,39 +73,61 @@ def relu_max_pool_plain(x: torch.Tensor, padding="SAME",
             idx.permute(0, 2, 3, 1).contiguous())
 
 
-def relu_max_pool(x: torch.Tensor, padding="SAME", with_index: bool = False):
-    """relu then 3x3/2 max pool of an NHWC tensor ``(B, H, W, C)``.
+def relu_max_pool_bwd_plain(g: torch.Tensor, idx: torch.Tensor, x_shape,
+                            padding="SAME") -> torch.Tensor:
+    """Plain PyTorch version of the backward kernel: scatter ``g`` (B, OH,
+    OW, C) by the argmax plane ``idx`` into dx of ``x_shape`` (B, H, W, C).
 
-    ``padding`` is "SAME" or ``((top, bottom), (left, right))``. Returns y,
-    or ``(y, idx)`` with ``with_index``. A CUDA tensor launches the kernel;
-    a CPU tensor takes :func:`relu_max_pool_plain`; any other device
-    raises."""
-    if x.device.type == "cpu":
-        return relu_max_pool_plain(x, padding, with_index)
-    if x.device.type != "cuda":
-        raise ValueError(f"relu_max_pool: no kernel for device {x.device}")
-    if x.dim() != 4 or x.dtype not in _DTYPES:
-        raise ValueError(f"relu_max_pool: expected a 4-d float32/bfloat16/"
-                         f"float16 NHWC tensor, got {x.dtype} "
-                         f"{tuple(x.shape)}")
-    if not x.is_contiguous():
+    The nine window positions are added in raster order into an f32 buffer
+    over the padded input, which is the kernel's order of summation, so the
+    two agree bit for bit; the pad border receives nothing (the forward
+    never picks a pad) and is cut off."""
+    b, h, w, c = x_shape
+    (pt, pb), (pl, pr) = _resolve_pads(h, w, padding)
+    oh, ow = g.shape[1], g.shape[2]
+    buf = torch.zeros((b, h + pt + pb, w + pl + pr, c), dtype=torch.float32,
+                      device=g.device)
+    gf = g.float()
+    zero = torch.zeros((), dtype=torch.float32, device=g.device)
+    for k in range(9):
+        dy, dx = divmod(k, 3)
+        buf[:, dy:dy + 2 * oh - 1:2, dx:dx + 2 * ow - 1:2] += torch.where(
+            idx == k, gf, zero)
+    return buf[:, pt:pt + h, pl:pl + w].to(g.dtype).contiguous()
+
+
+def _check_cuda(fn: str, t: torch.Tensor, what: str) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{fn}: no kernel for device {t.device}")
+    if t.dim() != 4 or t.dtype not in _DTYPES:
+        raise ValueError(f"{fn}: expected a 4-d float32/bfloat16/float16 "
+                         f"NHWC {what}, got {t.dtype} {tuple(t.shape)}")
+    if not t.is_contiguous():
         # an NCHW view of a channels_last tensor is contiguous once permuted
         # to NHWC; anything else would be read with the wrong strides
-        raise ValueError("relu_max_pool: x must be a contiguous (B, H, W, C) "
+        raise ValueError(f"{fn}: {what} must be a contiguous (B, H, W, C) "
                          "tensor (permute a channels_last NCHW tensor with "
                          ".permute(0, 2, 3, 1))")
-    b, h, w, c = x.shape
-    pads = _resolve_pads(h, w, padding)
+
+
+def _check_pads(fn: str, h: int, w: int, pads) -> tuple[int, int]:
     oh, ow = _out_size(h, pads[0]), _out_size(w, pads[1])
     if oh < 1 or ow < 1 or min(pads[0] + pads[1]) < 0 or \
             max(pads[0] + pads[1]) > 2:
-        raise ValueError(f"relu_max_pool: unsupported pads {pads} for "
-                         f"{h}x{w}")
+        raise ValueError(f"{fn}: unsupported pads {pads} for {h}x{w}")
+    return oh, ow
+
+
+def _fwd_kernel(x: torch.Tensor, pads, with_index: bool):
+    """Launch the forward kernel on a CUDA tensor: (y, idx or None)."""
+    _check_cuda("relu_max_pool", x, "x")
+    b, h, w, c = x.shape
+    oh, ow = _check_pads("relu_max_pool", h, w, pads)
     y = torch.empty((b, oh, ow, c), dtype=x.dtype, device=x.device)
     idx = torch.empty((b, oh, ow, c), dtype=torch.int8, device=x.device) \
         if with_index else None
     if y.numel() == 0:
-        return (y, idx) if with_index else y
+        return y, idx
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = _build.entry("fused_pool")(
@@ -108,7 +137,89 @@ def relu_max_pool(x: torch.Tensor, padding="SAME", with_index: bool = False):
             stream)
     _build.check(code, "relu_max_pool")
     relu_max_pool.launches += 1
-    return (y, idx) if with_index else y
+    return y, idx
+
+
+def relu_max_pool_bwd(g: torch.Tensor, idx: torch.Tensor, x_shape,
+                      padding="SAME") -> torch.Tensor:
+    """dx (``x_shape``, NHWC) of :func:`relu_max_pool` from the output
+    gradient ``g`` (B, OH, OW, C) and the forward's argmax plane ``idx``.
+
+    A CUDA tensor launches the backward kernel; a CPU tensor takes
+    :func:`relu_max_pool_bwd_plain`; any other device raises."""
+    if g.device != idx.device:
+        raise ValueError(f"relu_max_pool_bwd: g on {g.device}, idx on "
+                         f"{idx.device}")
+    if g.device.type == "cpu":
+        return relu_max_pool_bwd_plain(g, idx, x_shape, padding)
+    _check_cuda("relu_max_pool_bwd", g, "g")
+    b, h, w, c = (int(s) for s in x_shape)
+    pads = _resolve_pads(h, w, padding)
+    oh, ow = _check_pads("relu_max_pool_bwd", h, w, pads)
+    if tuple(g.shape) != (b, oh, ow, c) or tuple(idx.shape) != (b, oh, ow, c) \
+            or idx.dtype != torch.int8 or not idx.is_contiguous():
+        raise ValueError(f"relu_max_pool_bwd: expected g and a contiguous "
+                         f"int8 idx of shape {(b, oh, ow, c)}, got "
+                         f"{tuple(g.shape)} and {idx.dtype} "
+                         f"{tuple(idx.shape)}")
+    dx = torch.empty((b, h, w, c), dtype=g.dtype, device=g.device)
+    if dx.numel() == 0:
+        return dx
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = _build.entry("fused_pool_bwd")(
+            g.data_ptr(), idx.data_ptr(), dx.data_ptr(), _DTYPES[g.dtype],
+            b, h, w, c, oh, ow, pads[0][0], pads[1][0], stream)
+    _build.check(code, "relu_max_pool_bwd")
+    relu_max_pool_bwd.launches += 1
+    return dx
+
+
+class _ReluMaxPool(torch.autograd.Function):
+    """relu + pool with the argmax-plane backward. With ``write_index`` the
+    forward returns ``(y, idx)`` and keeps idx for the backward; without,
+    it returns y, writes no plane and has no backward to run."""
+
+    @staticmethod
+    def forward(ctx, x, pads, write_index):
+        if x.device.type == "cpu":
+            out = relu_max_pool_plain(x, pads, write_index)
+            y, idx = out if write_index else (out, None)
+        else:
+            y, idx = _fwd_kernel(x, pads, write_index)
+        if not write_index:
+            return y
+        ctx.save_for_backward(idx)
+        ctx.pads = pads
+        ctx.x_shape = tuple(x.shape)
+        ctx.mark_non_differentiable(idx)
+        return y, idx
+
+    @staticmethod
+    def backward(ctx, g, _g_idx=None):
+        (idx,) = ctx.saved_tensors
+        # g arrives as the NHWC view of a channels_last tensor, or as any
+        # other layout: the kernel reads contiguous NHWC
+        return relu_max_pool_bwd(g.contiguous(), idx, ctx.x_shape,
+                                 ctx.pads), None, None
+
+
+def relu_max_pool(x: torch.Tensor, padding="SAME", with_index: bool = False):
+    """relu then 3x3/2 max pool of an NHWC tensor ``(B, H, W, C)``.
+
+    ``padding`` is "SAME" or ``((top, bottom), (left, right))``. Returns y,
+    or ``(y, idx)`` with ``with_index``; y is differentiable in x. A CUDA
+    tensor launches the kernels; a CPU tensor takes the plain versions; any
+    other device raises."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"relu_max_pool: no kernel for device {x.device}")
+    pads = _resolve_pads(x.shape[1], x.shape[2], padding)
+    needs_grad = torch.is_grad_enabled() and x.requires_grad
+    out = _ReluMaxPool.apply(x, pads, with_index or needs_grad)
+    if with_index:
+        return out
+    return out[0] if needs_grad else out
 
 
 relu_max_pool.launches = 0
+relu_max_pool_bwd.launches = 0

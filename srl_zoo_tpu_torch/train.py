@@ -1,0 +1,188 @@
+"""Train an SRL model with the PyTorch port (port of the JAX package's
+``train.py``, same flags plus ``--device``).
+
+    python -m srl_zoo_tpu_torch.train --data-folder data/<ds> \\
+        --losses autoencoder --model-type custom_cnn --state-dim 200 \\
+        -bs 32 --epochs 30 --log-folder logs/<run>
+
+The run folder gets ``exp_config.json``, ``srl_model.pth`` (the best
+validation weights), ``loss_history.npz``, ``metrics.jsonl``,
+``checkpoints/`` (resume), ``states_rewards.npz`` (states of the whole
+dataset) and ``gtc.txt``. It runs on CUDA unless ``--device cpu`` is
+given; without a GPU it raises. The plots of the JAX CLI (``states.png``,
+``correlation.png``) are not written yet (ROADMAP.md queue A item 7).
+Flags of features the port does not run yet raise NotImplementedError
+naming their ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+import argparse
+import datetime
+import os
+import sys
+
+from srl_zoo_tpu_torch.config import (SRLConfig, build_config,
+                                      parse_loss_arguments)
+from srl_zoo_tpu_torch.data.schema import load_dataset, save_states_rewards
+from srl_zoo_tpu_torch.evaluation.gtc import ground_truth_correlation
+from srl_zoo_tpu_torch.training.learner import SRL4robotics
+from srl_zoo_tpu_torch.utils.device import resolve_device
+from srl_zoo_tpu_torch.utils.misc import (createFolder, parseDataFolder,
+                                          printGreen, printYellow,
+                                          set_global_seeds)
+
+DEFAULT_BN_MOMENTUM = 0.9
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(
+        description="State Representation Learning with a zoo of "
+                    "objectives (PyTorch + CUDA port)")
+    p.add_argument("--data-folder", type=str, required=True,
+                   help="Dataset folder (data/<name> or <name>)")
+    p.add_argument("--losses", nargs="+", type=str, default=["autoencoder"],
+                   help="Losses as name[:weight[:split_dim]]")
+    p.add_argument("--model-type", type=str, default="custom_cnn",
+                   choices=["custom_cnn", "resnet", "mlp", "linear"])
+    p.add_argument("--state-dim", type=int, default=2)
+    p.add_argument("-bs", "--batch-size", type=int, default=32)
+    p.add_argument("--epochs", type=int, default=30)
+    p.add_argument("-lr", "--learning-rate", type=float, default=5e-3)
+    p.add_argument("--seed", type=int, default=1)
+    p.add_argument("--val-size", type=float, default=0.2)
+    p.add_argument("--training-set-size", type=int, default=-1,
+                   help="Limit the number of training samples (-1 = all)")
+    p.add_argument("--l1-reg", type=float, default=0.0)
+    p.add_argument("--l2-reg", type=float, default=0.0)
+    p.add_argument("--beta", type=float, default=1.0,
+                   help="beta for the beta-VAE KL term")
+    p.add_argument("--occlusion-percentage", type=float, default=0.5,
+                   help="DAE occlusion fraction")
+    p.add_argument("--noise-type", type=str, default="occlusion",
+                   choices=["occlusion", "gaussian"])
+    p.add_argument("--noise-std", type=float, default=0.2)
+    p.add_argument("--multi-view", action="store_true")
+    p.add_argument("--balanced-sampling", action="store_true")
+    p.add_argument("--inverse-model-type", type=str, default="linear",
+                   choices=["linear", "mlp"])
+    p.add_argument("--bn-momentum", type=float, default=None,
+                   help="BatchNorm running-average momentum, flax "
+                        "convention ra = m*ra + (1-m)*batch (default 0.9 = "
+                        "torch's 0.1; a resumed run keeps its saved value "
+                        "unless this is given)")
+    p.add_argument("--grad-accum", type=int, default=1)
+    p.add_argument("--episode-prior-optimizer", type=str, default="shared",
+                   choices=["shared", "separate"])
+    p.add_argument("--path-to-dae", type=str, default="")
+    p.add_argument("--pretrained-weights", type=str, default="")
+    p.add_argument("--log-folder", type=str, default="",
+                   help="Where to write the run (default: logs/<dataset>/"
+                        "<timestamp>_<model>_<losses>)")
+    p.add_argument("--num-cpu", type=int, default=4)
+    p.add_argument("--no-display-plots", action="store_true",
+                   help="Kept for reference-CLI compatibility")
+    p.add_argument("--plot-every", type=int, default=0)
+    p.add_argument("--resume", action="store_true",
+                   help="Resume from the resume checkpoint in --log-folder")
+    p.add_argument("--profile", action="store_true")
+    p.add_argument("--checkpoint-every", type=int, default=1,
+                   help="Write the resume checkpoint every N epochs")
+    p.add_argument("--dtype", type=str, default="float32",
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--device-cache", type=str, default="auto",
+                   choices=["auto", "on", "off", "hybrid", "sharded"],
+                   help="The frame store lives on the device; 'auto' and "
+                        "'on' both require it to fit")
+    p.add_argument("--stream-overlap", default=False,
+                   action=argparse.BooleanOptionalAction)
+    p.add_argument("--no-hybrid-rotation", action="store_true",
+                   default=False)
+    p.add_argument("--coordinator-address", type=str, default="")
+    p.add_argument("--num-processes", type=int, default=1)
+    p.add_argument("--process-id", type=int, default=0)
+    p.add_argument("--device", type=str, default=None,
+                   help="torch device (default cuda)")
+    return p.parse_args(argv)
+
+
+def _check_cli_flags(args: argparse.Namespace) -> None:
+    """Flags the config does not record, for features not ported yet."""
+    checks = (
+        (args.plot_every > 0, "--plot-every",
+         "ROADMAP.md queue A item 7 (plotting)"),
+        (args.profile, "--profile",
+         "ROADMAP.md queue A item 9 'Tooling' (torch.profiler tracing)"),
+        (args.num_processes > 1 or bool(args.coordinator_address),
+         "--num-processes / --coordinator-address",
+         "ROADMAP.md queue A item 8 'Multi-GPU'"),
+    )
+    for failed, what, item in checks:
+        if failed:
+            raise NotImplementedError(f"{what} is not ported yet: {item}")
+
+
+def default_log_folder(dataset_name: str, model_type: str,
+                       loss_names) -> str:
+    ts = datetime.datetime.now().strftime("%y-%m-%d_%Hh%M_%S")
+    exp = f"{ts}_{model_type}_{'_'.join(loss_names)}"
+    return os.path.join("logs", os.path.basename(dataset_name.rstrip("/")),
+                        exp)
+
+
+def main(argv=None) -> str:
+    args = parse_args(argv)
+    _check_cli_flags(args)
+    device = resolve_device(args.device)  # no GPU: raise before any write
+    set_global_seeds(args.seed)
+
+    dataset_name = parseDataFolder(args.data_folder)
+    data_folder = args.data_folder if os.path.isdir(args.data_folder) \
+        else os.path.join("data", dataset_name)
+    if not os.path.isdir(data_folder):
+        printYellow(f"Dataset folder not found: {data_folder}")
+        sys.exit(1)
+    losses, split_dims = parse_loss_arguments(args.losses, args.state_dim)
+    if args.resume and not args.log_folder:
+        printYellow("--resume needs --log-folder pointing at the previous "
+                    "run (the default log folder is a fresh timestamp)")
+        sys.exit(1)
+    log_folder = args.log_folder or default_log_folder(
+        dataset_name, args.model_type, list(losses))
+    if args.bn_momentum is None:
+        # a resumed run keeps the momentum it trained at (a config written
+        # before the key existed trained at flax's 0.99)
+        saved = os.path.join(log_folder, "exp_config.json")
+        args.bn_momentum = SRLConfig.load(log_folder).bn_momentum \
+            if args.resume and os.path.exists(saved) else DEFAULT_BN_MOMENTUM
+
+    dataset = load_dataset(data_folder)
+    img_shape = tuple(dataset.frames.shape[1:]) \
+        if dataset.frames is not None else None
+    args.log_folder, args.data_folder = log_folder, data_folder
+    cfg = build_config(args, losses, split_dims,
+                       n_actions=dataset.n_actions,
+                       n_reward_classes=dataset.n_reward_classes,
+                       img_shape=img_shape)
+    cfg.check_trainable()
+    createFolder(log_folder, f"Log folder {log_folder} already exists")
+    cfg.save(log_folder)
+    printGreen(f"Training {cfg.model_type} with losses {dict(cfg.losses)} "
+               f"-> {log_folder}")
+
+    learner = SRL4robotics(cfg, log_folder=log_folder, device=device)
+    learner.learn(dataset, resume=args.resume,
+                  checkpoint_every=args.checkpoint_every)
+
+    states = learner.predict_states(dataset)
+    save_states_rewards(log_folder, states, dataset.rewards)
+    printGreen(f"Saved states_rewards.npz ({states.shape})")
+    gtc, _ = ground_truth_correlation(states, dataset.ground_truth_states)
+    printGreen(f"GTC score: {gtc:.4f}")
+    with open(os.path.join(log_folder, "gtc.txt"), "w") as f:
+        f.write(f"{gtc:.6f}\n")
+    return log_folder
+
+
+if __name__ == "__main__":
+    main()

@@ -74,9 +74,10 @@ def test_bridge_reads_flax_msgpack_and_skips_decoder(trained_ae_cli_run):
         np.testing.assert_array_equal(flat_got[k], np.asarray(flat_want[k]))
     sd, skipped = bridge.state_dict_from_jax(tree["params"],
                                              tree["batch_stats"])
-    assert skipped and all(k.split("/")[1] == "decoder" for k in skipped)
-    assert "params/decoder/Dense_0/kernel" in skipped
+    # the decoder is ported now: a config-1 run skips no key
+    assert skipped == []
     assert sd["encoder.convs.0.weight"].shape == (64, 3, 7, 7)
+    assert sd["decoder.deconvs.0.weight"].shape == (64, 64, 4, 4)
 
 
 def test_export_cli_matches_jax_predict_states(port_run, synthetic_dataset,
@@ -298,8 +299,9 @@ def test_server_encodes_on_one_warmed_thread(port_run, synthetic_dataset,
 
 def test_port_imports_neither_jax_nor_the_jax_package(port_run,
                                                       synthetic_dataset):
-    """After a CPU encode through every module of the slice, chip_smoke
-    included, neither jax nor srl_zoo_tpu is loaded."""
+    """After importing every module of the port, chip_smoke and the train
+    CLI included, and a CPU encode, neither jax nor srl_zoo_tpu is
+    loaded."""
     np.save(os.path.join(port_run, "_probe.npy"),
             np.asarray(synthetic_dataset.frames[:2]))
     code = (
@@ -307,6 +309,10 @@ def test_port_imports_neither_jax_nor_the_jax_package(port_run,
         "import chip_smoke\n"
         "import srl_zoo_tpu_torch.serve, srl_zoo_tpu_torch.bridge\n"
         "import srl_zoo_tpu_torch.evaluation.predict_dataset\n"
+        "import srl_zoo_tpu_torch.train, srl_zoo_tpu_torch.evaluation.gtc\n"
+        "from srl_zoo_tpu_torch.training import learner, train_step\n"
+        "from srl_zoo_tpu_torch.losses import registry\n"
+        "from srl_zoo_tpu_torch.data import loader\n"
         "from srl_zoo_tpu_torch.evaluation.knn import knn_mse\n"
         "from srl_zoo_tpu_torch.inference import StateEncoder\n"
         f"run = {port_run!r}\n"
