@@ -6,7 +6,8 @@ NVIDIA GPU.
 
 Needs one CUDA card, nvcc (CUDA_HOME or PATH) and this checkout; it builds
 the kernels of ``srl_zoo_tpu_torch/csrc`` itself. Phases, each of which
-must pass (else the exit code is 1 and no result line is printed):
+must pass (else the exit code is 1 and no result line is printed); each
+prints its wall time:
 
 1. The card's name and power limit (nvidia-smi); the kernels' build time.
 2. Each kernel against its plain PyTorch version on the card, at the shapes
@@ -19,38 +20,56 @@ must pass (else the exit code is 1 and no result line is printed):
    rows of a 20,000-frame 224x224x3 store, both modes, 1e-6; distance +
    top-k (K3) at Q=4,096, N=20,000, D=200, k=6, distances within 1e-4
    relative and indices equal except at ties within that tolerance
-   (counted).
+   (counted); pairwise distances (K4) at the same Q, N, D, each element
+   within 1e-5 of |x|^2 + |y|^2 against the plain version (and at four
+   ragged shapes) and against float64 on a 512 x 512 corner, timed
+   beside ``torch.cdist`` (the
+   library call), and the ``full`` route's top-6 indices against K3's,
+   equal except at counted near ties.
 3. The inference path at the full width of config 1 (custom_cnn,
    224x224x3, state_dim 200), from a seeded random model saved as a run
    folder: the HTTP server (coalescing 5 ms, max batch 32) answers two
    rounds of 8 concurrent single frames and 2 batches of 16, the first as
    a fresh server's first clients see it; states are exported for the
    20,000-frame store in batches of 256; KNN-MSE (k=5) scores 4,096
-   sampled queries. Kernel launch counts are zeroed just before and read
-   just after; K1, K2 and K3 must have run. Then the replies are held
-   against a direct encode (1e-5), 64 exported rows against a direct
-   encode (1e-5), and the score against the plain top-k's (1e-6), and an
-   export of 2,048 rows is profiled (device time by kernel, busy share).
-4. Training. One train step of config 1 on the card against the same step
-   on the CPU (plain versions), batch 8 at 224 px, from the same weights
-   (loss 1e-5 relative, gradients 1e-3 of their scale). A 4,096-frame
-   224x224x3 dataset folder with structure is written, and the train CLI
-   (``srl_zoo_tpu_torch.train.main``) trains config 1 on it for 3 epochs
-   at batch 32, exports its states and scores GTC; launch counts are zeroed
-   just before and read just after, and K1, K1b and K2 must have run. The
-   training loss must fall and the exported states must match a direct
-   encode (1e-5); train images/s and export states/s are printed. Then
-   each pool's input must be channels_last (the pool reads it in place),
-   and 8 train steps are profiled (device time by kernel, busy share,
-   layout transposes and the operations that launch them).
-5. A ``{"kernels": [...]}`` line (launches summed over both paths), the
+   sampled queries with the fused kernel, and the ``full`` route (K4 and a
+   stable sort) finds the same queries' 6 nearest. Kernel launch counts
+   are zeroed just before and read just after; K1, K2, K3 and K4 must have
+   run. Then the replies are held against a direct encode (1e-5), 64
+   exported rows against a direct encode (1e-5), the score against the
+   plain top-k's (1e-6), the ``full`` route's indices against the fused
+   route's (equal but at counted near ties) and its score against the
+   fused one's (1e-6), and an export of 2,048 rows is profiled (device
+   time by kernel, busy share).
+4. Training of BASELINE configs 1-4 (custom_cnn, 224x224x3, state_dim 200,
+   batch 32, lr 5e-3, BN momentum 0.9): 1 autoencoder, 2 vae, 3 priors,
+   4 ``autoencoder:1:100 inverse:2:50 forward:1:25 reward:1:25``. For
+   each: one train step on the card against the same step on the CPU
+   (plain versions) and in float64, batch 8, from the same weights (and
+   the VAE's same eps): loss and gradients within twice the CPU f32
+   step's deviation from float64. A 4,096-frame 224x224x3 dataset folder
+   with structure is written, and the train CLI
+   (``srl_zoo_tpu_torch.train.main``) trains each config on it (config 1
+   for 3 epochs, configs 2-4 for 2), exports its states and scores GTC;
+   KNN-MSE of the exported states is then scored through both neighbour
+   routes (K3 and K4). Launch counts are zeroed just before and read just
+   after; K1, K1b, K2, K3 and K4 must have run. The training loss must
+   fall, the exported states must match a direct encode (1e-5), and the
+   two routes' scores must agree (1e-6); train images/s and export
+   states/s are printed. Then each pool's input must be channels_last
+   (the pool reads it in place), and 8 train steps of config 1 are
+   profiled (device time by kernel, busy share, layout transposes and the
+   operations that launch them).
+5. A ``{"kernels": [...]}`` line (launches summed over all the paths), the
    nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
 Bounds use the H100 SXM data-sheet rates at 700 W: 3.35 TB/s of device
 memory and 67 TFLOP/s of float32 outside the tensor cores. No single
-PyTorch call computes any of the four kernels' functions (K1b:
+PyTorch call computes K1f's, K1b's, K2's or K3's function (K1b:
 ``max_pool2d_with_indices_backward`` takes int64 indices and has no relu
-mask), so ``library_ms`` is null.
+mask), so their ``library_ms`` is null; K4's is ``torch.cdist(x, y,
+compute_mode="use_mm_for_euclid_dist")``, the same product and norms plus
+a square root.
 """
 
 from __future__ import annotations
@@ -79,11 +98,22 @@ SEED = 0
 TRAIN_BATCH = 32
 TRAIN_FRAMES = 4096
 TRAIN_EPISODES = 16
-TRAIN_EPOCHS = 3
 CPU_STEP_BATCH = 8
 PROFILE_STEPS = 8
-INFERENCE_KERNELS = ("relu_max_pool", "gather_normalize", "knn_topk")
-TRAINING_KERNELS = ("relu_max_pool", "relu_max_pool_bwd", "gather_normalize")
+KNN_QUERIES = 4096
+# BASELINE configs 1-4: name, --losses tokens, epochs here (30 in the
+# configs; cut to stay well inside the script's time limit)
+TRAIN_CONFIGS = (
+    ("autoencoder", ("autoencoder",), 3),
+    ("vae", ("vae",), 2),
+    ("priors", ("priors",), 2),
+    ("splits", ("autoencoder:1:100", "inverse:2:50", "forward:1:25",
+                "reward:1:25"), 2),
+)
+INFERENCE_KERNELS = ("relu_max_pool", "gather_normalize", "knn_topk",
+                     "pairwise_sqdist")
+TRAINING_KERNELS = ("relu_max_pool", "relu_max_pool_bwd", "gather_normalize",
+                    "knn_topk", "pairwise_sqdist")
 
 
 def log(msg: str) -> None:
@@ -283,7 +313,7 @@ def check_knn(dev, g) -> dict:
     import torch
     from srl_zoo_tpu_torch.ops.knn_topk import (knn_topk_plain,
                                                 knn_topk_with_dist)
-    nq, n, d, k = 4096, N_FRAMES, STATE_DIM, 6
+    nq, n, d, k = KNN_QUERIES, N_FRAMES, STATE_DIM, 6
     q = torch.randn((nq, d), generator=g, device=dev)
     refs = torch.randn((n, d), generator=g, device=dev)
     kd, ki = knn_topk_with_dist(q, refs, k)
@@ -304,6 +334,75 @@ def check_knn(dev, g) -> dict:
         f"{ops / ms / 1e9:.1f} TFLOP/s)")
     return {"ms": ms, "plain_ms": plain, "bytes": nbytes, "ops": ops,
             "err": float((kd - pd).abs().max())}
+
+
+def within_norm_tol(got, want, x, y, rtol: float = 1e-5) -> float:
+    """Largest |got - want| / (|x_i|^2 + |y_j|^2); raises above ``rtol``
+    (the formula cancels for near points, so the distance itself is no
+    scale)."""
+    import torch
+    x, y = x.to(torch.float64), y.to(torch.float64)
+    scale = (x * x).sum(1)[:, None] + (y * y).sum(1)[None, :]
+    err = float(((got.to(torch.float64) - want.to(torch.float64)).abs()
+                 / scale).max())
+    if not err <= rtol:
+        raise AssertionError(f"pairwise_sqdist: error {err} of |x|^2+|y|^2")
+    return err
+
+
+def check_pairwise(dev, g) -> dict:
+    """K4 at the KNN shapes against its plain version and, on a corner,
+    float64; timed beside torch.cdist; then the ``full`` route's top-6
+    against the fused route's."""
+    import torch
+    from srl_zoo_tpu_torch.ops.knn_topk import knn_topk_with_dist
+    from srl_zoo_tpu_torch.ops.pairwise import (pairwise_sqdist,
+                                                pairwise_sqdist_plain)
+    nq, n, d = KNN_QUERIES, N_FRAMES, STATE_DIM
+    x = torch.randn((nq, d), generator=g, device=dev)
+    y = torch.randn((n, d), generator=g, device=dev)
+    out = pairwise_sqdist(x, y)
+    ref = pairwise_sqdist_plain(x, y)
+    torch.cuda.synchronize()
+    rel = within_norm_tol(out, ref, x, y)
+    err = float((out - ref).abs().max())
+    del ref
+    c = 512
+    xc, yc = x[:c].double(), y[:c].double()
+    f64 = ((xc[:, None, :] - yc[None, :, :]) ** 2).sum(-1)
+    rel64 = within_norm_tol(out[:c, :c], f64, xc, yc)
+    del out, f64
+    edge = 0.0  # masked edges: 1 x 1, M % 4 != 0, D not a multiple of 16
+    for en, em, ed in ((1, 1, 1), (129, 131, 5), (130, 257, 37),
+                       (300, 1111, 200)):
+        ex = torch.randn((en, ed), generator=g, device=dev)
+        ey = torch.randn((em, ed), generator=g, device=dev)
+        edge = max(edge, within_norm_tol(pairwise_sqdist(ex, ey),
+                                         pairwise_sqdist_plain(ex, ey),
+                                         ex, ey))
+    ms = time_ms(lambda: pairwise_sqdist(x, y))
+    plain = time_ms(lambda: pairwise_sqdist_plain(x, y))
+    lib = time_ms(lambda: torch.cdist(
+        x, y, compute_mode="use_mm_for_euclid_dist"))
+    nbytes = 4 * (nq + n) * d + 4 * nq * n
+    ops = 2 * nq * n * d
+    b, by = bound(nbytes, ops)
+    log(f"K4 pairwise_sqdist Q={nq} N={n} D={d}: max err {rel:.3g} of "
+        f"|x|^2+|y|^2 vs plain, {rel64:.3g} vs float64 on a {c}x{c} corner, "
+        f"{edge:.3g} at four ragged shapes; "
+        f"{ms:.4f} ms (plain {plain:.4f} ms, torch.cdist {lib:.4f} ms, "
+        f"bound {b:.4f} ms by {by}, {ops / ms / 1e9:.1f} TFLOP/s)")
+    k = 6
+    fd, fi = knn_topk_with_dist(x, y, k, impl="full")
+    kd, ki = knn_topk_with_dist(x, y, k)
+    torch.cuda.synchronize()
+    ties = near_tie_mismatches(x, y, fi, ki, 1e-4)
+    full_ms = time_ms(lambda: knn_topk_with_dist(x, y, k, impl="full"),
+                      iters=5)
+    log(f"full route (K4 + stable sort) top-{k}: {ties} index mismatches "
+        f"against K3 at near-ties; {full_ms:.4f} ms")
+    return {"ms": ms, "plain_ms": plain, "library_ms": lib, "bytes": nbytes,
+            "ops": ops, "err": err}
 
 
 # ---------------------------------------------------------------------------
@@ -376,6 +475,23 @@ def profile_export(encoder, store, rows: int = 2048) -> None:
             f"{e.key[:90]}")
 
 
+def check_full_route(q, refs, full_idx, queries, gt, score) -> None:
+    """The full route's (k+1 = 6) nearest against the fused route's on the
+    same points: indices equal but at counted near ties, and the KNN-MSE
+    (k=5) from its neighbours equal to ``score`` within 1e-6."""
+    from srl_zoo_tpu_torch.evaluation.knn import score_neighbors
+    from srl_zoo_tpu_torch.ops.knn_topk import knn_topk
+    fused = knn_topk(q, refs, full_idx.shape[1])
+    ties = near_tie_mismatches(q, refs, full_idx, fused, 1e-4)
+    full_score, _ = score_neighbors(full_idx.cpu().numpy(), queries, gt,
+                                    full_idx.shape[1] - 1)
+    if not abs(full_score - score) <= 1e-6 * max(1.0, abs(score)):
+        raise AssertionError(f"full route knn_mse {full_score} vs fused "
+                             f"{score}")
+    log(f"full route vs fused: {ties} index mismatches at near-ties; "
+        f"knn_mse {full_score:.9f} vs {score:.9f}")
+
+
 def run_slice(run_dir, frames_np, store, gt, counters) -> dict:
     import torch
     from srl_zoo_tpu_torch.evaluation.knn import (centre, knn_mse,
@@ -383,7 +499,7 @@ def run_slice(run_dir, frames_np, store, gt, counters) -> dict:
                                                   score_neighbors)
     from srl_zoo_tpu_torch.evaluation.predict_dataset import predict_states
     from srl_zoo_tpu_torch.inference import StateEncoder
-    from srl_zoo_tpu_torch.ops.knn_topk import knn_topk_plain
+    from srl_zoo_tpu_torch.ops.knn_topk import knn_topk, knn_topk_plain
     from srl_zoo_tpu_torch.serve import build_server
 
     encoder = StateEncoder.load(run_dir)
@@ -428,9 +544,17 @@ def run_slice(run_dir, frames_np, store, gt, counters) -> dict:
         export_s = time.perf_counter() - t0
 
         t0 = time.perf_counter()
-        score, queries, nbrs = knn_mse(states, gt, k=5, n_samples=4096,
-                                       seed=SEED)
+        score, queries, nbrs = knn_mse(states, gt, k=5,
+                                       n_samples=KNN_QUERIES, seed=SEED)
         knn_s = time.perf_counter() - t0
+
+        # the same queries' 6 nearest through the full route (K4)
+        t0 = time.perf_counter()
+        refs = centre(torch.from_numpy(states).to(encoder.device))
+        qi = torch.from_numpy(queries).to(encoder.device)
+        full_idx = knn_topk(refs[qi], refs, 6, impl="full")
+        torch.cuda.synchronize()
+        full_s = time.perf_counter() - t0
         launches = {name: c.launches for name, c in counters.items()}
         # --- end of the main path ------------------------------------------
     finally:
@@ -448,8 +572,9 @@ def run_slice(run_dir, frames_np, store, gt, counters) -> dict:
             f"{lat[-1]:.1f} ms")
     log(f"export: {len(states)} states in {export_s:.3f} s "
         f"({len(states) / export_s:.0f} frames/s, batches of 256)")
-    log(f"knn_mse(k=5, 4096 queries of {len(states)}): {score:.6f} in "
-        f"{knn_s * 1e3:.1f} ms")
+    log(f"knn_mse(k=5, {KNN_QUERIES} queries of {len(states)}): "
+        f"{score:.6f} in {knn_s * 1e3:.1f} ms; full route top-6 of the same "
+        f"queries in {full_s * 1e3:.1f} ms")
     log(f"inference path launches: {launches}")
     if not all(launches[k] > 0 for k in INFERENCE_KERNELS):
         raise AssertionError(f"a kernel never ran on the inference path: "
@@ -473,9 +598,7 @@ def run_slice(run_dir, frames_np, store, gt, counters) -> dict:
     if not err <= 1e-5:
         raise AssertionError(f"exported states differ from encode: {err}")
     log(f"export rows vs direct encode: max abs err {err:.3g}")
-    queries_p = sample_queries(len(states), 4096, SEED)
-    refs = centre(torch.from_numpy(states).to(encoder.device))
-    qi = torch.from_numpy(queries_p).to(encoder.device)
+    queries_p = sample_queries(len(states), KNN_QUERIES, SEED)
     idx = knn_topk_plain(refs[qi], refs, 6)[1].cpu().numpy()
     plain_score, plain_nbrs = score_neighbors(idx, queries_p, gt, 5)
     if not (np.isfinite(score) and np.array_equal(queries, queries_p)
@@ -484,6 +607,7 @@ def run_slice(run_dir, frames_np, store, gt, counters) -> dict:
             f"knn_mse {score} vs plain {plain_score}: "
             f"{int((nbrs != plain_nbrs).sum())} neighbour indices differ")
     log(f"knn_mse vs plain top-k: {score:.9f} vs {plain_score:.9f}")
+    check_full_route(refs[qi], refs, full_idx, queries, gt, score)
     profile_export(encoder, store)
     return launches
 
@@ -535,57 +659,88 @@ def write_train_dataset(folder: str) -> None:
     del frames
 
 
-def check_train_step_on_cpu(dev) -> None:
-    """One train-mode forward + backward of config 1 at 224 px, batch
-    CPU_STEP_BATCH, from the same weights and frames on the card (kernels,
-    f32), on the CPU (plain versions, f32) and on the CPU in float64. At
-    this geometry the train-mode BatchNorm backwards cancel heavily, and
-    f32 gradients stray from the float64 ones by ~1e-3 of their scale on
-    either device. So the card's step is held to the float64 one within
-    twice the CPU f32 step's worst deviation (+1e-5): its loss, and each
-    gradient relative to its tensor's largest float64 magnitude (a bias in
-    front of a train-mode BatchNorm has an exact gradient of 0; there the
-    scale is 1e-2 of the model's largest gradient)."""
+def train_config(tokens, batch_size: int):
+    """SRLConfig of a --losses token list at the full width of the
+    BASELINE configs (4 actions, 2 reward classes, as the dataset)."""
+    from srl_zoo_tpu_torch.config import SRLConfig, parse_loss_arguments
+    losses, splits = parse_loss_arguments(list(tokens), STATE_DIM)
+    return SRLConfig(state_dim=STATE_DIM, img_height=IMG[0],
+                     img_width=IMG[1], batch_size=batch_size, seed=SEED,
+                     losses=tuple(losses.items()),
+                     split_dims=tuple(splits.items()), n_actions=4,
+                     n_reward_classes=2)
+
+
+def check_train_step_on_cpu(dev, name: str, tokens) -> None:
+    """One train-mode forward + backward of a config at 224 px, batch
+    CPU_STEP_BATCH, from the same weights, frames, metadata and (VAE)
+    noise on the card (kernels, f32), on the CPU (plain versions, f32)
+    and on the CPU in float64. At this geometry the train-mode BatchNorm
+    backwards cancel heavily, and f32 gradients stray from the float64
+    ones by ~1e-3 of their scale on either device. So the card's step is
+    held to the float64 one within twice the CPU f32 step's worst
+    deviation (+1e-5): its loss, and each gradient relative to its
+    tensor's largest float64 magnitude (a bias in front of a train-mode
+    BatchNorm has an exact gradient of 0; there the scale is 1e-2 of the
+    model's largest gradient)."""
     import copy
 
     import torch
-    from srl_zoo_tpu_torch.config import SRLConfig
-    from srl_zoo_tpu_torch.ops.gather_norm import gather_normalize
+    from srl_zoo_tpu_torch.data import samplers
     from srl_zoo_tpu_torch.training.state import make_model
-    cfg = SRLConfig(state_dim=STATE_DIM, img_height=IMG[0], img_width=IMG[1],
-                    batch_size=CPU_STEP_BATCH, seed=SEED)
-    frames = torch.from_numpy(np.random.RandomState(SEED).randint(
-        0, 256, (CPU_STEP_BATCH,) + IMG).astype(np.uint8))
+    from srl_zoo_tpu_torch.training.train_step import _inputs, _loss
+    cfg = train_config(tokens, CPU_STEP_BATCH)
+    b = CPU_STEP_BATCH
+    rng = np.random.RandomState(SEED)
+    frames = torch.from_numpy(rng.randint(0, 256, (b + 1,) + IMG).astype(
+        np.uint8))  # row b is the last row's next frame
+    actions = rng.randint(0, 4, b).astype(np.int32)
+    rewards = rng.randint(0, 2, b).astype(np.int32)
+    batch = {"indices": np.arange(b, dtype=np.int32),
+             "valid": np.ones(b, np.float32), "actions": actions,
+             "reward_classes": rewards}
+    (batch["same_action_partners"],
+     batch["same_action_mask"]) = samplers.find_same_action_pairs(actions,
+                                                                  rng)
+    (batch["dissimilar_partners"],
+     batch["dissimilar_mask"]) = samplers.find_dissimilar_pairs(
+        actions, rewards, rng)
+    eps = torch.randn((2, b, STATE_DIM),
+                      generator=torch.Generator().manual_seed(SEED))
     cpu = make_model(cfg, torch.device("cpu"))
     runs = (("card", copy.deepcopy(cpu).to(
         dev, memory_format=torch.channels_last), dev, torch.float32),
         ("cpu", copy.deepcopy(cpu), torch.device("cpu"), torch.float32),
         ("f64", cpu.double(), torch.device("cpu"), torch.float64))
     res = {}
-    for name, model, d, dt in runs:
-        store = frames.to(d)
-        obs = gather_normalize(store, torch.arange(CPU_STEP_BATCH,
-                                                   device=d)).to(dt)
+    for run, model, d, dt in runs:
         model.train()
-        loss = (model(obs)["recon"] - obs).square().mean()
+        inputs = _inputs(model, frames.to(d), batch)
+        for k in ("obs", "next_obs"):
+            if inputs[k] is not None:
+                inputs[k] = inputs[k].to(dt)
+        if cfg.use_vae:
+            inputs["noise"] = {"state": eps[0].to(d, dt),
+                               "next_state": eps[1].to(d, dt)}
+        loss = _loss(model, inputs)[0]
         loss.backward()
-        res[name] = (float(loss.detach()),
-                     {k: p.grad.detach().double().cpu()
-                      for k, p in model.named_parameters()})
+        res[run] = (float(loss.detach()),
+                    {k: p.grad.detach().double().cpu()
+                     for k, p in model.named_parameters()})
     l64, g64 = res["f64"]
     floor = 1e-2 * max(float(v.abs().max()) for v in g64.values())
     dev_of = {}
-    for name in ("card", "cpu"):
-        loss, grads = res[name]
-        dev_of[name] = (abs(loss - l64) / abs(l64), max(
+    for run in ("card", "cpu"):
+        loss, grads = res[run]
+        dev_of[run] = (abs(loss - l64) / abs(l64), max(
             float((grads[k] - g64[k]).abs().max())
             / max(float(g64[k].abs().max()), floor) for k in g64))
     (lc, gc), (lp, gp) = dev_of["card"], dev_of["cpu"]
     if lc > 2 * lp + 1e-5 or gc > 2 * gp + 1e-5:
-        raise AssertionError(f"train step against float64: card loss "
+        raise AssertionError(f"{name} train step against float64: card loss "
                              f"{lc:.3g} gradients {gc:.3g}, CPU f32 loss "
                              f"{lp:.3g} gradients {gp:.3g}")
-    log(f"train step at batch {CPU_STEP_BATCH}, {IMG[0]} px, against the "
+    log(f"{name}: train step at batch {b}, {IMG[0]} px, against the "
         f"float64 step: card loss {lc:.3g}, gradients {gc:.3g} of their "
         f"scale; CPU f32 loss {lp:.3g}, gradients {gp:.3g}")
 
@@ -610,14 +765,15 @@ def profile_training(dev, data_folder: str) -> None:
     opt = make_optimizer(cfg, model)
     batches = iter(DataLoader(dataset, dataset.training_indices(),
                               TRAIN_BATCH, seed=SEED))
-    train_step(model, opt, store, next(batches))  # warm: cuDNN plans
+    gen = torch.Generator(device=dev).manual_seed(SEED)  # config 1 draws none
+    train_step(model, opt, store, next(batches), gen)  # warm: cuDNN plans
     # each pool reads the NHWC view of its BatchNorm's output: that view
     # is the tensor itself (no copy) only if the output is channels_last
     layouts = []
     hooks = [bn.register_forward_hook(lambda m, i, out: layouts.append(
         out.is_contiguous(memory_format=torch.channels_last)))
         for bn in model.encoder.bns]
-    train_step(model, opt, store, next(batches))
+    train_step(model, opt, store, next(batches), gen)
     for h in hooks:
         h.remove()
     if layouts != [True] * len(model.encoder.bns):
@@ -631,7 +787,7 @@ def profile_training(dev, data_folder: str) -> None:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for batch in steps:
-            train_step(model, opt, store, batch)
+            train_step(model, opt, store, batch, gen)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # a range such as the optimizer's "Optimizer.step#Adam.step" shows on
@@ -661,7 +817,7 @@ def profile_training(dev, data_folder: str) -> None:
     # which operations launch them: one more step, with input shapes
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
-        train_step(model, opt, store, steps[0])
+        train_step(model, opt, store, steps[0], gen)
         torch.cuda.synchronize()
     by_op = {}
     for e in prof.events():
@@ -677,49 +833,64 @@ def is_transpose(name: str) -> bool:
     return "nchwToNhwc" in name or "nhwcToNchw" in name
 
 
-def run_training(data_folder: str, run_dir: str, counters) -> dict:
-    """Config 1 trained through the CLI entry point for TRAIN_EPOCHS epochs
-    at batch 32 on the card, with the launch counts zeroed just before and
-    read just after; then its outputs are checked."""
+def run_training(data_folder: str, run_dir: str, dev, counters, name: str,
+                 tokens, epochs: int) -> dict:
+    """A config trained through the CLI entry point at batch 32 on the
+    card, then its states scored by KNN-MSE through both neighbour routes,
+    with the launch counts zeroed just before and read just after; then
+    its outputs are checked."""
     import os
 
+    import torch
     from srl_zoo_tpu_torch import train as train_cli
     from srl_zoo_tpu_torch.data.device_cache import build_cache
     from srl_zoo_tpu_torch.data.schema import load_dataset
+    from srl_zoo_tpu_torch.evaluation.knn import centre, knn_mse
     from srl_zoo_tpu_torch.evaluation.predict_dataset import predict_states
     from srl_zoo_tpu_torch.inference import StateEncoder
+    from srl_zoo_tpu_torch.ops.knn_topk import knn_topk
+    dataset = load_dataset(data_folder)
+    gt = dataset.ground_truth_states
     # --- the training path, with the launch counts zeroed just before -----
     for c in counters.values():
         c.launches = 0
     t0 = time.perf_counter()
-    train_cli.main(["--data-folder", data_folder, "--losses", "autoencoder",
+    train_cli.main(["--data-folder", data_folder, "--losses", *tokens,
                     "--model-type", "custom_cnn", "--state-dim",
                     str(STATE_DIM), "-bs", str(TRAIN_BATCH), "--epochs",
-                    str(TRAIN_EPOCHS), "--log-folder", run_dir])
+                    str(epochs), "--log-folder", run_dir])
     train_s = time.perf_counter() - t0
-    launches = {name: c.launches for name, c in counters.items()}
+    states = np.load(os.path.join(run_dir, "states_rewards.npz"))["states"]
+    score, queries, _ = knn_mse(states, gt, k=5, n_samples=KNN_QUERIES,
+                                seed=SEED)
+    refs = centre(torch.from_numpy(states).to(dev))
+    q = refs[torch.from_numpy(queries).to(dev)]
+    full_idx = knn_topk(q, refs, 6, impl="full")
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
     # --- end of the training path -----------------------------------------
-    log(f"train CLI ({TRAIN_EPOCHS} epochs, export, GTC) in {train_s:.1f} s")
-    log(f"training path launches: {launches}")
+    log(f"{name}: train CLI ({epochs} epochs, export, GTC) in "
+        f"{train_s:.1f} s")
+    log(f"{name}: training path launches: {launches}")
     if not all(launches[k] > 0 for k in TRAINING_KERNELS):
         raise AssertionError(f"a kernel never ran on the training path: "
                              f"{launches}")
     hist = np.load(os.path.join(run_dir, "loss_history.npz"))
-    log(f"train/total by epoch: {hist['train/total'].tolist()}; val/total: "
-        f"{hist['val/total'].tolist()}")
+    log(f"{name}: train/total by epoch: {hist['train/total'].tolist()}; "
+        f"val/total: {hist['val/total'].tolist()}")
     if not hist["train/total"][-1] < hist["train/total"][0]:
-        raise AssertionError("the training loss did not fall")
+        raise AssertionError(f"{name}: the training loss did not fall")
     with open(os.path.join(run_dir, "metrics.jsonl")) as f:
         ips = [json.loads(line)["images_per_sec"] for line in f]
-    log(f"train images/s by epoch: {[round(v, 1) for v in ips]}")
-    states = np.load(os.path.join(run_dir, "states_rewards.npz"))["states"]
+    log(f"{name}: train images/s by epoch: {[round(v, 1) for v in ips]}")
     if states.shape != (TRAIN_FRAMES, STATE_DIM) or \
             not np.isfinite(states).all():
         raise AssertionError(f"states_rewards.npz: {states.shape} or "
                              "non-finite")
     with open(os.path.join(run_dir, "gtc.txt")) as f:
-        log(f"GTC after {TRAIN_EPOCHS} epochs: {f.read().strip()}")
-    dataset = load_dataset(data_folder)
+        log(f"{name}: GTC after {epochs} epochs: {f.read().strip()}; "
+            f"KNN-MSE (k=5) {score:.6f}")
+    check_full_route(q, refs, full_idx, queries, gt, score)
     encoder = StateEncoder.load(run_dir)
     # export batches of 256 and encode chunks of 32 take different cuDNN
     # algorithms: f32 rounding, relative to the states' scale
@@ -733,12 +904,10 @@ def run_training(data_folder: str, run_dir: str, counters) -> dict:
     t0 = time.perf_counter()
     predict_states(encoder, store)
     export_s = time.perf_counter() - t0
-    log(f"trained model: export vs direct encode max err {err:.3g} of the "
-        f"largest |state|; "
-        f"{TRAIN_FRAMES / export_s:.0f} states/s (export of "
-        f"{TRAIN_FRAMES} rows in batches of 256)")
+    log(f"{name}: trained model: export vs direct encode max err {err:.3g} "
+        f"of the largest |state|; {TRAIN_FRAMES / export_s:.0f} states/s "
+        f"(export of {TRAIN_FRAMES} rows in batches of 256)")
     return launches
-
 
 
 def main() -> int:
@@ -752,8 +921,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     try:
-        from srl_zoo_tpu_torch.ops import _build, fused_pool, gather_norm, \
-            knn_topk
+        from srl_zoo_tpu_torch.ops import (_build, fused_pool, gather_norm,
+                                           knn_topk, pairwise)
     except ImportError as e:
         print(f"chip_smoke: the port package is missing ({e}); run from "
               "the root of a checkout", file=sys.stderr)
@@ -788,32 +957,44 @@ def main() -> int:
             f"({store.numel() / 1e9:.2f} GB) resident in "
             f"{time.perf_counter() - t0:.1f} s")
 
+        t0 = time.perf_counter()
         stats = {"relu_max_pool": check_pool(dev, g)["export"],
                  "relu_max_pool_bwd": check_pool_bwd(dev, g),
                  "gather_normalize": check_gather(store, dev, g),
-                 "knn_topk": check_knn(dev, g)}
+                 "knn_topk": check_knn(dev, g),
+                 "pairwise_sqdist": check_pairwise(dev, g)}
+        log(f"phase 2 (kernels) in {time.perf_counter() - t0:.1f} s")
 
+        t0 = time.perf_counter()
         cfg = SRLConfig(state_dim=STATE_DIM, img_height=IMG[0],
                         img_width=IMG[1])
         counters = {"relu_max_pool": fused_pool.relu_max_pool,
                     "relu_max_pool_bwd": fused_pool.relu_max_pool_bwd,
                     "gather_normalize": gather_norm.gather_normalize,
-                    "knn_topk": knn_topk.knn_topk_with_dist}
+                    "knn_topk": knn_topk.knn_topk_with_dist,
+                    "pairwise_sqdist": pairwise.pairwise_sqdist}
         with tempfile.TemporaryDirectory() as run_dir:
             save_srl_model(run_dir, random_model(cfg, SEED))
-            inference = run_slice(run_dir, frames_np, store, gt, counters)
+            launches = run_slice(run_dir, frames_np, store, gt, counters)
         del store, frames_np
+        log(f"phase 3 (inference) in {time.perf_counter() - t0:.1f} s")
 
-        check_train_step_on_cpu(dev)
         with tempfile.TemporaryDirectory() as tmp:
             t0 = time.perf_counter()
             write_train_dataset(f"{tmp}/data")
             log(f"training dataset ({TRAIN_FRAMES} frames of "
                 f"{TRAIN_EPISODES} episodes) written in "
                 f"{time.perf_counter() - t0:.1f} s")
-            training = run_training(f"{tmp}/data", f"{tmp}/run", counters)
+            for name, tokens, epochs in TRAIN_CONFIGS:
+                t0 = time.perf_counter()
+                check_train_step_on_cpu(dev, name, tokens)
+                training = run_training(f"{tmp}/data", f"{tmp}/{name}", dev,
+                                        counters, name, tokens, epochs)
+                launches = {k: launches[k] + training[k] for k in counters}
+                log(f"phase 4, {name} in {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
             profile_training(dev, f"{tmp}/data")
-        launches = {k: inference[k] + training[k] for k in counters}
+            log(f"training profile in {time.perf_counter() - t0:.1f} s")
     except Exception:
         traceback.print_exc()
         return 1
@@ -827,6 +1008,8 @@ def main() -> int:
                              "srl_zoo_tpu/ops/gather_norm.py:44"),
         "knn_topk": ("srl_zoo_tpu_torch/csrc/knn_topk.cu",
                      "srl_zoo_tpu/ops/knn_topk.py:309"),
+        "pairwise_sqdist": ("srl_zoo_tpu_torch/csrc/pairwise.cu",
+                            "srl_zoo_tpu/ops/pairwise.py:49"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
@@ -836,7 +1019,8 @@ def main() -> int:
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": s["err"], "ms": s["ms"],
                         "plain_ms": s["plain_ms"], "bound_ms": b,
-                        "bound_by": by, "library_ms": None})
+                        "bound_by": by,
+                        "library_ms": s.get("library_ms")})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

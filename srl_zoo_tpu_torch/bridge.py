@@ -13,10 +13,13 @@
                      -> decoder.deconvs.i.weight (in,out,kh,kw), flipped on
                         both spatial axes (models/decoders.py)
     params/decoder/ConvTranspose_i/bias   -> decoder.deconvs.i.bias
+    params/{forward,inverse,reward}_model/Dense_i/kernel,bias (in,out)
+                                          -> *_model.layers.i.weight,bias
 
-Subtrees the port does not run yet (the heads of other losses) come back
-as a list of skipped keys; a config-1 run skips none. Convert a run folder
-in place:
+The VAE's encoder Dense_0 is 2 * state_dim wide (mu, then logvar).
+Subtrees the port does not run yet (the episode prior's
+``discriminator``) come back as a list of skipped keys; runs of configs
+1-4 skip none. Convert a run folder in place:
 
     python -m srl_zoo_tpu_torch.bridge --log-folder logs/<run>
 
@@ -40,6 +43,7 @@ from srl_zoo_tpu_torch.models.decoders import deconv_weight_from_flax
 from srl_zoo_tpu_torch.models.encoders import KERNEL_SIZES
 
 _MSGPACK_NDARRAY = 1  # flax's ext type: packed (shape, dtype name, C bytes)
+HEADS = ("forward_model", "inverse_model", "reward_model")
 
 
 def _flatten(tree: Dict, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -92,7 +96,16 @@ def state_dict_from_jax(params: Dict, batch_stats: Dict
             sd[f"{d}.bias"] = take(f"params/decoder/ConvTranspose_{i}/bias")
         for i in range(len(DECODER_WIDTHS)):
             _take_bn(sd, take, f"decoder.bns.{i}", f"decoder/BatchNorm_{i}")
-    unknown = [k for k in flat if k.split("/")[1] in ("encoder", "decoder")]
+    for head in HEADS:
+        i = 0
+        while f"params/{head}/Dense_{i}/kernel" in flat:
+            sd[f"{head}.layers.{i}.weight"] = take(
+                f"params/{head}/Dense_{i}/kernel").T.contiguous()
+            sd[f"{head}.layers.{i}.bias"] = take(
+                f"params/{head}/Dense_{i}/bias")
+            i += 1
+    unknown = [k for k in flat
+               if k.split("/")[1] in ("encoder", "decoder") + HEADS]
     if unknown:
         raise KeyError(f"weights the port does not know: {unknown}")
     return sd, sorted(flat)

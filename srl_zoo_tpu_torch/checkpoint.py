@@ -4,8 +4,9 @@
   SRLModules state dict, the reference's file name) beside
   ``exp_config.json``. ``save_srl_model`` / ``load_srl_model``.
 * Full-state resume checkpoints: ``checkpoints/state_latest.pth`` holds the
-  model, the optimizer, the step, the epochs completed and the best
-  validation loss so far, and ``checkpoints/meta.json`` the last three, so
+  model, the optimizer, the state of the generator that draws the VAE's
+  noise, the step, the epochs completed and the best validation loss so
+  far, and ``checkpoints/meta.json`` the last three, so
   that ``--resume`` continues a run where it stopped. The JAX package
   writes these on a background thread; here the writes are synchronous.
 
@@ -69,14 +70,16 @@ def load_srl_model(log_folder: str, device: torch.device
 
 
 def save_train_state(log_folder: str, model: torch.nn.Module,
-                     optimizer: torch.optim.Optimizer, step: int, epoch: int,
+                     optimizer: torch.optim.Optimizer,
+                     generator: torch.Generator, step: int, epoch: int,
                      best_val: float) -> str:
     """The resume checkpoint after ``epoch`` completed epochs."""
     ckpt_dir = os.path.join(log_folder, RESUME_DIR)
     os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, STATE_FILE)
     _atomic_save({"model": model.state_dict(),
-                  "optimizer": optimizer.state_dict(), "step": int(step),
+                  "optimizer": optimizer.state_dict(),
+                  "generator": generator.get_state(), "step": int(step),
                   "epoch": int(epoch), "best_val": float(best_val)}, path)
     meta = {"step": int(step), "epoch": int(epoch)}
     if best_val != float("inf"):
@@ -100,8 +103,11 @@ def load_meta(log_folder: str) -> dict:
 
 
 def restore_train_state(log_folder: str, model: torch.nn.Module,
-                        optimizer: torch.optim.Optimizer) -> Optional[dict]:
-    """Load the resume checkpoint into ``model`` and ``optimizer``; returns
+                        optimizer: torch.optim.Optimizer,
+                        generator: torch.Generator) -> Optional[dict]:
+    """Load the resume checkpoint into ``model``, ``optimizer`` and
+    ``generator`` (a checkpoint written before the generator was kept
+    leaves it at its seed); returns
     {"step", "epoch", "best_val"}, or None when there is nothing to
     resume."""
     path = os.path.join(log_folder, RESUME_DIR, STATE_FILE)
@@ -112,6 +118,9 @@ def restore_train_state(log_folder: str, model: torch.nn.Module,
     try:
         model.load_state_dict(ckpt["model"])
         optimizer.load_state_dict(ckpt["optimizer"])
+        if "generator" in ckpt:
+            # a generator's state is a CPU byte tensor on every device
+            generator.set_state(ckpt["generator"].cpu())
     except (RuntimeError, ValueError, KeyError) as e:
         raise ValueError(
             f"Resume checkpoint in {log_folder} does not match the current "

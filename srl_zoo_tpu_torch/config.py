@@ -37,9 +37,11 @@ _PENDING_MODELS = {
     "mlp": "ROADMAP.md queue A item 'DenseEncoder / LinearEncoder'",
     "linear": "ROADMAP.md queue A item 'DenseEncoder / LinearEncoder'",
 }
-LOSS_ZOO_ITEM = ("ROADMAP.md queue A item 3 'Configs 2-4 and the rest of "
-                 "the loss zoo'")
-TRAINABLE_LOSSES = ("autoencoder",)
+LOSS_ZOO_ITEM = ("ROADMAP.md queue A item 3 'the rest of the loss zoo' (dae, "
+                 "perceptual, triplet, episode-prior, reward-prior, "
+                 "supervised, random, --grad-accum, --path-to-dae)")
+TRAINABLE_LOSSES = ("autoencoder", "vae", "priors", "forward", "inverse",
+                    "reward")
 
 
 def parse_loss_arguments(loss_args: List[str], state_dim: int
@@ -234,8 +236,40 @@ class SRLConfig:
         return "vae" in self.loss_names
 
     @property
+    def use_forward(self) -> bool:
+        return "forward" in self.loss_names
+
+    @property
+    def use_inverse(self) -> bool:
+        return "inverse" in self.loss_names
+
+    @property
+    def use_reward(self) -> bool:
+        return "reward" in self.loss_names
+
+    @property
     def use_triplet(self) -> bool:
         return "triplet" in self.loss_names
+
+    # use_episode_prior, use_dae and use_supervised mirror the JAX config;
+    # nothing reads them until those losses are ported (ROADMAP.md queue A
+    # item 3), and check_trainable refuses the losses they name
+
+    @property
+    def use_episode_prior(self) -> bool:
+        return "episode-prior" in self.loss_names
+
+    @property
+    def use_priors(self) -> bool:
+        return "priors" in self.loss_names
+
+    @property
+    def use_dae(self) -> bool:
+        return "dae" in self.loss_names
+
+    @property
+    def use_supervised(self) -> bool:
+        return "supervised" in self.loss_names
 
     @property
     def needs_next_obs(self) -> bool:

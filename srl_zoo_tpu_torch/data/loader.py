@@ -14,7 +14,11 @@ JAX loader's for the same seed:
 * a split smaller than one batch is tiled (training) or padded (eval).
 
 Each batch is ``{"indices", "valid", "actions", "reward_classes",
-"rewards"}``; the rewards of transition i are those of row i + 1.
+"rewards"}``; the rewards of transition i are those of row i + 1. With
+``priors`` a batch also carries the robotic priors' pairs
+(``same_action_partners`` / ``_mask``, ``dissimilar_partners`` / ``_mask``),
+drawn from the epoch's generator after its permutation, same-action pairs
+first, batch by batch, as the JAX loader draws them.
 """
 
 from __future__ import annotations
@@ -23,19 +27,21 @@ from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
 
+from srl_zoo_tpu_torch.data import samplers
 from srl_zoo_tpu_torch.data.schema import Dataset
 
 
 class DataLoader:
     def __init__(self, dataset: Dataset, indices: np.ndarray,
                  batch_size: int, shuffle: bool = True, seed: int = 0,
-                 wraparound: bool = True):
+                 wraparound: bool = True, priors: bool = False):
         self.ds = dataset
         self.indices = np.asarray(indices, np.int32)
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.wraparound = wraparound
+        self.priors = priors
         # epochs iterated so far; a resumed run sets it to its start epoch
         self.epoch = 0
 
@@ -43,15 +49,23 @@ class DataLoader:
         b, n = self.batch_size, len(self.indices)
         return 1 if n <= b else (n + b - 1) // b
 
-    def _make_batch(self, idx: np.ndarray, valid: np.ndarray
-                    ) -> Dict[str, np.ndarray]:
+    def _make_batch(self, idx: np.ndarray, valid: np.ndarray,
+                    rng: np.random.RandomState) -> Dict[str, np.ndarray]:
         ds = self.ds
         nxt = np.minimum(idx + 1, ds.n_samples - 1)
-        return {"indices": idx.astype(np.int32),
-                "valid": valid.astype(np.float32),
-                "actions": ds.actions[idx],
-                "reward_classes": ds.reward_classes[nxt],
-                "rewards": ds.rewards[nxt]}
+        batch = {"indices": idx.astype(np.int32),
+                 "valid": valid.astype(np.float32),
+                 "actions": ds.actions[idx],
+                 "reward_classes": ds.reward_classes[nxt],
+                 "rewards": ds.rewards[nxt]}
+        if self.priors:
+            (batch["same_action_partners"],
+             batch["same_action_mask"]) = samplers.find_same_action_pairs(
+                ds.actions[idx], rng)
+            (batch["dissimilar_partners"],
+             batch["dissimilar_mask"]) = samplers.find_dissimilar_pairs(
+                ds.actions[idx], ds.reward_classes[nxt], rng)
+        return batch
 
     def batch_indices(self, order: np.ndarray
                       ) -> List[Tuple[np.ndarray, np.ndarray]]:
@@ -76,7 +90,8 @@ class DataLoader:
         return out
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
-        # eval keeps one generator across epochs; training draws anew
+        # eval keeps one generator across epochs (the same pairs in every
+        # validation pass); training draws anew
         rng = np.random.RandomState(
             self.seed + (self.epoch if self.shuffle else 0))
         self.epoch += 1
@@ -84,4 +99,4 @@ class DataLoader:
         if self.shuffle:
             order = order[rng.permutation(len(order))]
         for idx, valid in self.batch_indices(order):
-            yield self._make_batch(idx, valid)
+            yield self._make_batch(idx, valid, rng)

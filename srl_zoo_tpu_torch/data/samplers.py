@@ -1,0 +1,46 @@
+"""Pair samplers of the robotic priors (a copy of three functions of
+``srl_zoo_tpu/data/samplers.py``), host-side in numpy.
+
+Each minibatch row gets one partner index and a 0/1 mask (0: no partner
+exists, the pair counts for nothing), drawn from the loader's
+``RandomState`` so that both packages draw the same pairs for a seed.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+
+
+def _sample_true_per_row(allowed: np.ndarray, rng: np.random.RandomState
+                         ) -> Tuple[np.ndarray, np.ndarray]:
+    """One uniformly drawn True column of each row of a (B, B) boolean
+    matrix: (choice (B,) int32, mask (B,) float32, 0 for all-False rows).
+    One uniform per row picks a rank among the row's True columns."""
+    counts = allowed.sum(axis=1)
+    ranks = (rng.rand(len(allowed)) * np.maximum(counts, 1)).astype(np.int64)
+    choice = np.argmax(np.cumsum(allowed, axis=1) > ranks[:, None], axis=1)
+    return choice.astype(np.int32), (counts > 0).astype(np.float32)
+
+
+def find_same_action_pairs(actions: np.ndarray, rng: np.random.RandomState
+                           ) -> Tuple[np.ndarray, np.ndarray]:
+    """A partner j != i with the same action, for each row i (the
+    proportionality and repeatability priors)."""
+    a = np.asarray(actions)
+    allowed = a[:, None] == a[None, :]
+    np.fill_diagonal(allowed, False)
+    return _sample_true_per_row(allowed, rng)
+
+
+def find_dissimilar_pairs(actions: np.ndarray, reward_classes: np.ndarray,
+                          rng: np.random.RandomState
+                          ) -> Tuple[np.ndarray, np.ndarray]:
+    """A partner j != i with the same action and a different reward class,
+    for each row i (the causality prior)."""
+    a = np.asarray(actions)
+    r = np.asarray(reward_classes)
+    allowed = (a[:, None] == a[None, :]) & (r[:, None] != r[None, :])
+    np.fill_diagonal(allowed, False)
+    return _sample_true_per_row(allowed, rng)

@@ -1,14 +1,22 @@
 """Loss functions (port of ``srl_zoo_tpu/losses/functions.py``) for the
-objectives the port trains: the autoencoder's pixel MSE and the l1/l2
+objectives the port trains: the autoencoder's pixel MSE, the beta-VAE, the
+four robotic priors, the forward / inverse / reward heads, and the l1/l2
 parameter regularizers. The reductions are the JAX package's: a mean over
-each sample's elements, then a mean over the valid rows of the batch.
+each sample's elements, then a mean over the valid rows of the batch; the
+pair terms of the priors average over their valid pairs.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, Optional
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
+
+
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    """At least float32: half types go up, float64 (a reference run)
+    stays."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 def _masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -24,9 +32,15 @@ def _batch_mean(per_sample: torch.Tensor,
     return _masked_mean(per_sample, valid)
 
 
+def _safe_norm(x: torch.Tensor) -> torch.Tensor:
+    """L2 norm over the last axis with a finite gradient at 0 (a
+    wall-blocked agent gives next_state == state exactly)."""
+    return torch.sqrt(x.square().sum(-1) + 1e-12)
+
+
 def mse(a: torch.Tensor, b: torch.Tensor,
         valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-    sq = (a.float() - b.float()).square()
+    sq = (_f32(a) - _f32(b)).square()
     return _batch_mean(sq.reshape(sq.shape[0], -1).mean(dim=1), valid)
 
 
@@ -35,6 +49,96 @@ def autoencoder_loss(recon: torch.Tensor, target: torch.Tensor,
     """Pixel MSE between the reconstruction and the clean normalized
     frame (reference: autoEncoderLoss)."""
     return mse(recon, target, valid)
+
+
+def kl_divergence(mu: torch.Tensor, logvar: torch.Tensor,
+                  valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """KL(q(z|x) || N(0, I)): a mean over the latent dims, then over the
+    batch (reference: kullbackLeiblerLoss)."""
+    mu, logvar = _f32(mu), _f32(logvar)
+    per_sample = -0.5 * (1.0 + logvar - mu.square() - logvar.exp()).mean(-1)
+    return _batch_mean(per_sample, valid)
+
+
+def vae_loss(recon: torch.Tensor, target: torch.Tensor, mu: torch.Tensor,
+             logvar: torch.Tensor, beta: float,
+             valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """beta-VAE: pixel MSE + beta * KL on the VAE's slice (reference:
+    vaeLoss)."""
+    return mse(recon, target, valid) + beta * kl_divergence(mu, logvar, valid)
+
+
+def robotic_priors_loss(state: torch.Tensor, next_state: torch.Tensor,
+                        same_action_partners: torch.Tensor,
+                        same_action_mask: torch.Tensor,
+                        dissimilar_partners: torch.Tensor,
+                        dissimilar_mask: torch.Tensor,
+                        valid: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The four robotic priors (reference: roboticPriorsLoss), with ds =
+    s' - s and one partner j per row:
+
+      temporal     = E[ |ds|^2 ]
+      causality    = E[ exp(-|s_i - s_j|^2) ]   (same action, other reward)
+      proportional = E[ (|ds_i| - |ds_j|)^2 ]    (same action)
+      repeatable   = E[ exp(-|s_i - s_j|^2) |ds_i - ds_j|^2 ]  (same action)
+
+    A pair counts only when both of its rows are valid. Returns (sum of the
+    four, {term: value} with each pair term's pair count under
+    ``_w/<term>``, the weight of its epoch mean)."""
+    s = _f32(state)
+    ds = _f32(next_state) - s
+    if valid is not None:
+        same_action_mask = same_action_mask * valid * \
+            valid[same_action_partners]
+        dissimilar_mask = dissimilar_mask * valid * valid[dissimilar_partners]
+    temporal = _batch_mean(ds.square().sum(-1), valid)
+    causality = _masked_mean(
+        torch.exp(-(s - s[dissimilar_partners]).square().sum(-1)),
+        dissimilar_mask)
+    s_p = s[same_action_partners]
+    ds_p = ds[same_action_partners]
+    proportionality = _masked_mean(
+        (_safe_norm(ds) - _safe_norm(ds_p)).square(), same_action_mask)
+    sim = torch.exp(-(s - s_p).square().sum(-1))
+    repeatability = _masked_mean(sim * (ds - ds_p).square().sum(-1),
+                                 same_action_mask)
+    terms = {
+        "priors/temporal": temporal,
+        "priors/causality": causality,
+        "priors/proportionality": proportionality,
+        "priors/repeatability": repeatability,
+        "_w/priors/causality": dissimilar_mask.sum(),
+        "_w/priors/proportionality": same_action_mask.sum(),
+        "_w/priors/repeatability": same_action_mask.sum(),
+    }
+    return temporal + causality + proportionality + repeatability, terms
+
+
+def forward_model_loss(pred_next: torch.Tensor, next_state: torch.Tensor,
+                       valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """MSE on the predicted next state slice (reference: forwardModelLoss)."""
+    return mse(pred_next, next_state, valid)
+
+
+def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                   valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    logp = torch.log_softmax(_f32(logits), dim=-1)
+    per_sample = -logp.gather(1, labels.long()[:, None])[:, 0]
+    return _batch_mean(per_sample, valid)
+
+
+def inverse_model_loss(logits: torch.Tensor, actions: torch.Tensor,
+                       valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Cross-entropy over the discrete actions (reference:
+    inverseModelLoss)."""
+    return _cross_entropy(logits, actions, valid)
+
+
+def reward_model_loss(logits: torch.Tensor, reward_classes: torch.Tensor,
+                      valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Cross-entropy over the reward classes (reference: rewardModelLoss)."""
+    return _cross_entropy(logits, reward_classes, valid)
 
 
 def l1_regularization(params: Iterable[torch.Tensor]) -> torch.Tensor:

@@ -1,10 +1,13 @@
 """Weighted loss assembly (port of ``srl_zoo_tpu/losses/registry.py``
 ``compute_total_loss`` / ``recompose_epoch_means``) for the losses the
-port trains: the autoencoder and the l1/l2 regularizers.
+port trains: autoencoder, vae, priors, forward, inverse, reward and the
+l1/l2 regularizers. Each loss reads its SRL-splits slice of the state.
 
 ``compute_total_loss`` returns ``(total, metrics)``; ``metrics`` holds each
-term, ``total`` and ``_n_valid`` (the batch's valid-row count, by which the
-learner weights its epoch means), all as 0-d tensors on the device.
+term, ``total``, ``_n_valid`` (the batch's valid-row count, by which the
+learner weights its epoch means) and, for the pair terms of the priors,
+``_w/<term>`` (their pair counts, which weight those terms instead), all as
+0-d tensors on the device.
 """
 
 from __future__ import annotations
@@ -15,18 +18,29 @@ import torch
 
 from srl_zoo_tpu_torch.config import SRLConfig
 from srl_zoo_tpu_torch.losses import functions as F
+from srl_zoo_tpu_torch.models.srl_modules import slice_state as _sl
+
+PRIOR_TERMS = ("priors/temporal", "priors/causality",
+               "priors/proportionality", "priors/repeatability")
 
 
 def compute_total_loss(cfg: SRLConfig, outputs: Dict[str, torch.Tensor],
                        target_obs: torch.Tensor,
                        valid: Optional[torch.Tensor],
-                       params: Iterable[torch.Tensor]):
+                       params: Iterable[torch.Tensor],
+                       batch: Optional[Dict[str, torch.Tensor]] = None):
     """``outputs`` of SRLModules.forward, the clean normalized frames the
     decoder reconstructs, the (B,) 0/1 validity mask of a padded eval
-    batch (None = all rows count) and the model's parameters."""
+    batch (None = all rows count), the model's parameters and the batch's
+    device tensors the heads and priors read (``actions``,
+    ``reward_classes``, the priors' partners and masks)."""
     weights = cfg.loss_dict
+    slices = cfg.slices
+    batch = batch or {}
     metrics: Dict[str, torch.Tensor] = {}
     total = torch.zeros((), dtype=torch.float32, device=target_obs.device)
+    state = outputs["state"]
+    next_state = outputs.get("next_state")
 
     def add(name: str, value: torch.Tensor) -> None:
         nonlocal total
@@ -36,6 +50,29 @@ def compute_total_loss(cfg: SRLConfig, outputs: Dict[str, torch.Tensor],
     if "autoencoder" in weights:
         add("autoencoder", F.autoencoder_loss(outputs["recon"], target_obs,
                                               valid))
+    if "vae" in weights:
+        sl = slices["vae"]
+        add("vae", F.vae_loss(outputs["recon"], target_obs,
+                              _sl(outputs["mu"], sl),
+                              _sl(outputs["logvar"], sl), cfg.beta, valid))
+    if "priors" in weights:
+        sl = slices["priors"]
+        value, terms = F.robotic_priors_loss(
+            _sl(state, sl), _sl(next_state, sl),
+            batch["same_action_partners"], batch["same_action_mask"],
+            batch["dissimilar_partners"], batch["dissimilar_mask"], valid)
+        metrics.update(terms)
+        add("priors", value)
+    if "forward" in weights:
+        add("forward", F.forward_model_loss(
+            outputs["forward_pred"], _sl(next_state, slices["forward"]),
+            valid))
+    if "inverse" in weights:
+        add("inverse", F.inverse_model_loss(outputs["inverse_logits"],
+                                            batch["actions"], valid))
+    if "reward" in weights:
+        add("reward", F.reward_model_loss(outputs["reward_logits"],
+                                          batch["reward_classes"], valid))
     if cfg.l1_reg > 0 or cfg.l2_reg > 0:
         params = list(params)
     if cfg.l1_reg > 0:
@@ -46,16 +83,20 @@ def compute_total_loss(cfg: SRLConfig, outputs: Dict[str, torch.Tensor],
         total = total + cfg.l2_reg * metrics["l2_reg"]
     metrics["total"] = total
     metrics["_n_valid"] = (valid.sum() if valid is not None else
-                           torch.tensor(float(outputs["state"].shape[0]),
+                           torch.tensor(float(state.shape[0]),
                                         device=target_obs.device))
     return total, metrics
 
 
 def recompose_epoch_means(cfg: SRLConfig,
                           means: Dict[str, float]) -> Dict[str, float]:
-    """Rebuild ``total`` of an epoch from its exactly averaged components,
-    with the arithmetic compute_total_loss uses per batch."""
+    """Rebuild the composite metrics of an epoch (``priors``, ``total``)
+    from its exactly averaged components, with the arithmetic
+    compute_total_loss uses per batch: a composite mixes row and pair
+    denominators, so no one weighting of its per-batch values is exact."""
     out = dict(means)
+    if all(t in out for t in PRIOR_TERMS):
+        out["priors"] = float(sum(out[t] for t in PRIOR_TERMS))
     total = 0.0
     for name, w in cfg.loss_dict.items():
         if name in out:

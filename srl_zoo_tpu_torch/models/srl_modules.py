@@ -3,16 +3,24 @@
 
 ``encode`` is the export / serving path: the deterministic state (mu with
 the VAE loss active, whose encoder emits (mu, logvar)). ``forward`` is the
-training apply of the decoder losses: it returns ``state``, ``mu`` and
-``recon``, the decoder's reconstruction of the reconstruction losses' state
-slice. Train or eval mode (BatchNorm statistics) follows ``.train()`` /
-``.eval()``. The forward/inverse/reward/discriminator heads and the VAE's
-sampling wait for ROADMAP.md queue A item 3.
+training apply: it encodes the observation (and the next one, when given),
+and returns every output the active losses read: ``state``, ``mu``
+(``logvar`` with the VAE), ``next_state``, ``recon`` (the decoder's
+reconstruction of the reconstruction losses' slice) and the heads'
+``forward_pred``, ``inverse_logits`` and ``reward_logits``, each head on
+its own slice of ``state`` and ``next_state``.
+
+In train mode the VAE samples ``z = mu + exp(logvar / 2) * eps`` on its
+slice only; the other slices stay ``mu``. ``eps`` comes in through
+``noise`` (``{"state": ..., "next_state": ...}``, each (B, state_dim)),
+drawn by the caller, so the module itself is deterministic. Eval mode
+uses ``mu``. Train or eval mode (BatchNorm statistics, sampling) follows
+``.train()`` / ``.eval()``.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -20,6 +28,8 @@ from torch import nn
 from srl_zoo_tpu_torch.config import SRLConfig
 from srl_zoo_tpu_torch.models.decoders import CNNDecoder
 from srl_zoo_tpu_torch.models.encoders import CustomCNN
+from srl_zoo_tpu_torch.models.heads import (ForwardModel, InverseModel,
+                                            RewardModel)
 
 
 def slice_state(state: torch.Tensor, sl) -> torch.Tensor:
@@ -35,27 +45,77 @@ class SRLModules(nn.Module):
         out_dim = 2 * cfg.state_dim if cfg.use_vae else cfg.state_dim
         self.encoder = CustomCNN(out_dim, cfg.n_channels, cfg.img_height,
                                  cfg.img_width, cfg.bn_momentum)
+        slices = cfg.slices
         if cfg.use_decoder:
             self.recon_slice = cfg.recon_slice
             self.decoder = CNNDecoder(self.recon_slice[1], cfg.img_height,
                                       cfg.img_width, cfg.n_channels,
                                       cfg.bn_momentum)
+        mlp = cfg.inverse_model_type == "mlp"
+        if cfg.use_forward:
+            self.forward_model = ForwardModel(slices["forward"][1],
+                                              cfg.n_actions, mlp)
+        if cfg.use_inverse:
+            self.inverse_model = InverseModel(slices["inverse"][1],
+                                              cfg.n_actions, mlp)
+        if cfg.use_reward:
+            self.reward_model = RewardModel(slices["reward"][1],
+                                            cfg.n_reward_classes)
+
+    def _encode_raw(self, obs: torch.Tensor):
+        """(mu, logvar) with the VAE active, else (state, None)."""
+        out = self.encoder(obs)
+        if self.cfg.use_vae:
+            d = self.cfg.state_dim
+            return out[:, :d], out[:, d:]
+        return out, None
+
+    def _sample(self, mu: torch.Tensor, logvar: Optional[torch.Tensor],
+                eps: Optional[torch.Tensor]) -> torch.Tensor:
+        """z on the VAE's slice in train mode; mu elsewhere."""
+        if not (self.cfg.use_vae and self.training):
+            return mu
+        if eps is None:
+            raise ValueError("a train-mode VAE forward needs its noise")
+        start, size = self.cfg.slices["vae"]
+        z = mu + torch.exp(0.5 * logvar) * eps
+        cols = torch.arange(mu.shape[-1], device=mu.device)
+        return torch.where((cols >= start) & (cols < start + size), z, mu)
 
     def encode(self, obs: torch.Tensor) -> torch.Tensor:
         """Normalized float (B, H, W, C) -> deterministic state (B, d)."""
-        out = self.encoder(obs)
-        return out[:, :self.cfg.state_dim] if self.cfg.use_vae else out
+        return self._encode_raw(obs)[0]
 
-    def forward(self, obs: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """Normalized float (B, H, W, C) -> {"state", "mu", "recon"}; recon
-        is (B, H, W, C), the NHWC view of the decoder's output."""
-        if self.cfg.use_vae:
-            raise NotImplementedError(
-                "VAE training is not ported yet: ROADMAP.md queue A item 3 "
-                "'Configs 2-4 and the rest of the loss zoo'")
-        state = self.encoder(obs)
-        out = {"state": state, "mu": state}
-        if self.cfg.use_decoder:
+    def forward(self, obs: torch.Tensor,
+                next_obs: Optional[torch.Tensor] = None,
+                actions: Optional[torch.Tensor] = None,
+                noise: Optional[Dict[str, torch.Tensor]] = None
+                ) -> Dict[str, torch.Tensor]:
+        """Normalized float (B, H, W, C) frames -> the outputs the losses
+        read; ``recon`` is (B, H, W, C), the NHWC view of the decoder's
+        output."""
+        cfg = self.cfg
+        noise = noise or {}
+        mu, logvar = self._encode_raw(obs)
+        state = self._sample(mu, logvar, noise.get("state"))
+        out = {"state": state, "mu": mu}
+        if logvar is not None:
+            out["logvar"] = logvar
+        if next_obs is not None:
+            next_mu, next_logvar = self._encode_raw(next_obs)
+            out["next_state"] = self._sample(next_mu, next_logvar,
+                                             noise.get("next_state"))
+        if cfg.use_decoder:
             recon = self.decoder(slice_state(state, self.recon_slice))
             out["recon"] = recon.permute(0, 2, 3, 1)
+        if cfg.use_forward:
+            out["forward_pred"] = self.forward_model(
+                slice_state(state, cfg.slices["forward"]), actions)
+        for name, head in (("inverse", "inverse_model"),
+                           ("reward", "reward_model")):
+            if name in cfg.loss_names:
+                sl = cfg.slices[name]
+                out[f"{name}_logits"] = getattr(self, head)(
+                    slice_state(state, sl),
+                    slice_state(out["next_state"], sl))
         return out

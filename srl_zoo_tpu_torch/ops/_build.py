@@ -24,7 +24,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "srl_zoo_tpu_torch"
-SOURCES = ("fused_pool", "fused_pool_bwd", "gather_norm", "knn_topk")
+SOURCES = ("fused_pool", "fused_pool_bwd", "gather_norm", "knn_topk",
+           "pairwise")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -42,6 +43,7 @@ SIGNATURES = {
                     [_P, _P, _P, _P, _L, _L, _L, _I, _F, _F, _P]),
     "knn_topk": ("srl_knn_topk",
                  [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "pairwise": ("srl_pairwise_sqdist", [_P, _P, _P, _I, _I, _I, _P]),
 }
 
 _lock = threading.Lock()

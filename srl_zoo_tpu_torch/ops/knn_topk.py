@@ -12,6 +12,12 @@ the source note says how the design meets that.
 The (Q, N) distance matrix never reaches device memory: each block keeps
 its distance tile in shared memory and its running best-k in registers,
 and a second pass merges the lists of the blocks that split N.
+
+``impl`` names the JAX package's routes. ``"auto"``, ``"pallas"`` and
+``"pallas_t"`` take the fused kernel (one CUDA kernel serves the two TPU
+layouts). ``"full"`` writes the (Q, N) matrix with the pairwise kernel
+(K4, ops/pairwise.py) and keeps each row's k smallest with a stable sort,
+ties to the lowest index as ``lax.top_k`` gives them.
 """
 
 from __future__ import annotations
@@ -19,8 +25,11 @@ from __future__ import annotations
 import torch
 
 from srl_zoo_tpu_torch.ops import _build
+from srl_zoo_tpu_torch.ops.pairwise import (pairwise_sqdist,
+                                            pairwise_sqdist_plain)
 
 MAX_K = 64
+FUSED_IMPLS = ("auto", "pallas", "pallas_t")
 _TQ, _TR = 64, 64  # query and reference tile of the kernel
 
 
@@ -29,21 +38,19 @@ def knn_topk_plain(q: torch.Tensor, refs: torch.Tensor, k: int,
     """Plain PyTorch version: chunked product, stable sort cut to k (the
     stable sort gives ties to the lowest index; torch.topk promises no tie
     order)."""
-    q = q.to(torch.float32)
-    refs = refs.to(torch.float32)
-    rr = (refs * refs).sum(1)
-    out_d, out_i = [], []
-    for s in range(0, q.shape[0], query_chunk):
-        qc = q[s:s + query_chunk]
-        qq = (qc * qc).sum(1, keepdim=True)
-        d2 = torch.clamp(qq + rr[None, :] - 2.0 * (qc @ refs.T), min=0.0)
-        d, i = torch.sort(d2, dim=1, stable=True)
-        out_d.append(d[:, :k])
-        out_i.append(i[:, :k])
-    if not out_d:
-        return (q.new_zeros((0, k)),
+    parts = [_smallest_k(pairwise_sqdist_plain(q[s:s + query_chunk], refs), k)
+             for s in range(0, q.shape[0], query_chunk)]
+    if not parts:
+        return (torch.zeros((0, k), device=q.device),
                 torch.zeros((0, k), dtype=torch.int64, device=q.device))
-    return torch.cat(out_d), torch.cat(out_i)
+    return torch.cat([d for d, _ in parts]), torch.cat([i for _, i in parts])
+
+
+def _smallest_k(d2: torch.Tensor, k: int):
+    """Each row's k smallest (value, column), ascending, ties to the lowest
+    column."""
+    d, i = torch.sort(d2, dim=1, stable=True)
+    return d[:, :k], i[:, :k]
 
 
 def _splits(nq: int, n: int, device: torch.device) -> int:
@@ -54,16 +61,27 @@ def _splits(nq: int, n: int, device: torch.device) -> int:
     return max(1, min(r_tiles, -(-4 * sms // q_tiles)))
 
 
-def knn_topk_with_dist(q: torch.Tensor, refs: torch.Tensor, k: int):
+def knn_topk_with_dist(q: torch.Tensor, refs: torch.Tensor, k: int,
+                       impl: str = "auto"):
     """(distances (Q, k) float32, indices (Q, k) int64), ascending.
 
-    CUDA tensors launch the kernel (k <= ``MAX_K``); CPU tensors take
-    :func:`knn_topk_plain` (any k); any other device raises."""
+    The fused route launches its kernel for CUDA tensors (k <= ``MAX_K``)
+    and takes :func:`knn_topk_plain` for CPU tensors (any k); the ``full``
+    route goes through :func:`pairwise_sqdist`, which does the same per
+    device. Any other device raises."""
+    if impl == "blocked":
+        raise NotImplementedError(
+            "knn_topk impl 'blocked' is not ported yet: ROADMAP.md queue A "
+            "item 10 'the measured alternatives'")
+    if impl not in FUSED_IMPLS + ("full",):
+        raise ValueError(f"unknown impl {impl!r}")
     if not 1 <= k <= refs.shape[0]:
         raise ValueError(f"k={k} outside [1, {refs.shape[0]} reference "
                          "points]")
     if q.device != refs.device:
         raise ValueError(f"knn_topk: q on {q.device}, refs on {refs.device}")
+    if impl == "full":
+        return _smallest_k(pairwise_sqdist(q, refs), k)
     if q.device.type == "cpu":
         return knn_topk_plain(q, refs, k)
     if q.device.type != "cuda":
@@ -101,6 +119,7 @@ def knn_topk_with_dist(q: torch.Tensor, refs: torch.Tensor, k: int):
 knn_topk_with_dist.launches = 0
 
 
-def knn_topk(q: torch.Tensor, refs: torch.Tensor, k: int) -> torch.Tensor:
+def knn_topk(q: torch.Tensor, refs: torch.Tensor, k: int,
+             impl: str = "auto") -> torch.Tensor:
     """Indices (Q, k) int64 of each query's k nearest references."""
-    return knn_topk_with_dist(q, refs, k)[1]
+    return knn_topk_with_dist(q, refs, k, impl)[1]

@@ -11,8 +11,10 @@ validation weights), ``loss_history.npz``, ``metrics.jsonl``,
 dataset) and ``gtc.txt``. It runs on CUDA unless ``--device cpu`` is
 given; without a GPU it raises. The plots of the JAX CLI (``states.png``,
 ``correlation.png``) are not written yet (ROADMAP.md queue A item 7).
-Flags of features the port does not run yet raise NotImplementedError
-naming their ROADMAP.md item.
+It trains the losses autoencoder, vae (``--beta``), priors, forward,
+inverse and reward (``--inverse-model-type``), alone or as SRL splits
+(``name:weight:split_dim``). Flags of features the port does not run yet
+raise NotImplementedError naming their ROADMAP.md item.
 """
 
 from __future__ import annotations

@@ -6,7 +6,9 @@ as the JAX learner does, uploads the frame store to the device once, and
 runs the epoch loop: the train steps over index batches, train metrics
 averaged over valid rows, a masked validation pass in eval mode, the
 best-validation weights kept as on-device copies and exported to
-``srl_model.pth``, the loss history and a resume checkpoint per epoch.
+``srl_model.pth``, the loss history and a resume checkpoint per epoch. One
+``torch.Generator`` on the device, seeded with the config's seed, draws
+the VAE's noise; the resume checkpoint keeps its state.
 ``predict_states`` encodes a dataset through
 ``evaluation/predict_dataset.py``.
 """
@@ -51,17 +53,22 @@ def split_indices(dataset: Dataset, cfg: SRLConfig
 
 def mean_metrics(metric_dicts: List[Dict[str, torch.Tensor]],
                  cfg: SRLConfig) -> Dict[str, float]:
-    """Epoch means of per-step metrics, each weighted by its step's valid
-    row count, fetched from the device in one transfer; ``total`` is then
-    recomposed from the exact component means."""
+    """Epoch means of per-step metrics, each weighted by its own per-step
+    denominator (``_w/<name>``, the pair count of a pair term, else
+    ``_n_valid``, the valid row count), fetched from the device in one
+    transfer; ``priors`` and ``total`` are then recomposed from the exact
+    component means."""
     if not metric_dicts:
         return {}
+
+    def stacked(k):
+        return torch.stack([m[k] for m in metric_dicts]).float()
+
     names = [k for k in metric_dicts[0] if not k.startswith("_")]
-    w = torch.stack([m["_n_valid"] for m in metric_dicts]).float()
-    den = w.sum().clamp_min(1.0)
-    means = torch.stack([
-        (torch.stack([m[k] for m in metric_dicts]).float() * w).sum() / den
-        for k in names]).cpu().tolist()
+    weights = [stacked(f"_w/{k}" if f"_w/{k}" in metric_dicts[0]
+                       else "_n_valid") for k in names]
+    means = torch.stack([(stacked(k) * w).sum() / w.sum().clamp_min(1.0)
+                         for k, w in zip(names, weights)]).cpu().tolist()
     return recompose_epoch_means(cfg, dict(zip(names, means)))
 
 
@@ -83,6 +90,8 @@ class SRL4robotics:
         set_global_seeds(cfg.seed)
         self.model = make_model(cfg, self.device)
         self.optimizer = make_optimizer(cfg, self.model)
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            cfg.seed)
         self._frames = None
         self._frames_of = None
         n_params = sum(p.numel() for p in self.model.parameters())
@@ -113,16 +122,18 @@ class SRL4robotics:
         frames = self._store(dataset)
         train_loader = DataLoader(dataset, train_idx, cfg.batch_size,
                                   shuffle=True, seed=cfg.seed,
-                                  wraparound=True)
+                                  wraparound=True, priors=cfg.use_priors)
         # padded + masked, so val metrics are exact per-sample means
         val_loader = DataLoader(dataset, val_idx, cfg.batch_size,
                                 shuffle=False, seed=cfg.seed,
-                                wraparound=False) if len(val_idx) else None
+                                wraparound=False, priors=cfg.use_priors) \
+            if len(val_idx) else None
 
         start_epoch, step, best_val = 0, 0, float("inf")
         if resume:
             restored = ckpt.restore_train_state(self.log_folder, self.model,
-                                                self.optimizer)
+                                                self.optimizer,
+                                                self.generator)
             if restored is not None:
                 step = restored["step"]
                 start_epoch = min(restored["epoch"], cfg.epochs)
@@ -141,7 +152,7 @@ class SRL4robotics:
                 acc, n_images = [], 0
                 for batch in train_loader:
                     acc.append(train_step(self.model, self.optimizer, frames,
-                                          batch))
+                                          batch, self.generator))
                     step += 1
                     n_images += int(batch["valid"].sum())
                 train_metrics = mean_metrics(acc, cfg)
@@ -165,8 +176,8 @@ class SRL4robotics:
                 if (epoch + 1) % max(checkpoint_every, 1) == 0 \
                         or epoch == cfg.epochs - 1:
                     ckpt.save_train_state(self.log_folder, self.model,
-                                          self.optimizer, step, epoch + 1,
-                                          best_val)
+                                          self.optimizer, self.generator,
+                                          step, epoch + 1, best_val)
         except BaseException:
             # keep the loss history of the epochs that finished
             logger.save_history()
@@ -192,7 +203,7 @@ class SRL4robotics:
             # a finished run resumed: evaluate the exported weights once
             loader = val_loader or DataLoader(
                 dataset, train_idx, cfg.batch_size, shuffle=False,
-                seed=cfg.seed, wraparound=False)
+                seed=cfg.seed, wraparound=False, priors=cfg.use_priors)
             val_metrics = self._run_eval(loader, frames)
         printGreen(f"Best validation loss: {best_val:.4f}")
         return val_metrics

@@ -3,16 +3,21 @@
 ``eval_step``, cached mode).
 
 A batch is the loader's index batch (data/loader.py). The gather kernel
-(K2) reads its rows from the uint8 store and normalizes them; the model
-runs forward (the pools' K1 forward writes the argmax plane), the loss is
-taken, the backward runs (K1's backward at each pool) and Adam steps. The
-JAX package pads an epoch's step axis to a bucket to reuse compiled
-programs and skips the padded steps; here only the real steps run.
+(K2) reads its rows from the uint8 store and normalizes them, and once more
+the next frames, rows ``min(i + 1, N - 1)``, when a loss reads the next
+state (priors, forward, inverse, reward). The model runs forward (the
+pools' K1 forward writes the argmax plane), the loss is taken, the
+backward runs (K1's backward at each pool) and Adam steps. In train mode a
+VAE's ``eps`` is drawn from the caller's ``torch.Generator``, one (B,
+state_dim) normal for the state and one for the next state; eval draws
+nothing. The JAX package pads an epoch's step axis to a bucket to reuse
+compiled programs and skips the padded steps; here only the real steps
+run.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -21,30 +26,66 @@ from srl_zoo_tpu_torch.losses.registry import compute_total_loss
 from srl_zoo_tpu_torch.models.srl_modules import SRLModules
 from srl_zoo_tpu_torch.ops.gather_norm import gather_normalize
 
+_PAIRS = {"same_action_partners": torch.int64,
+          "same_action_mask": torch.float32,
+          "dissimilar_partners": torch.int64,
+          "dissimilar_mask": torch.float32}
+
+
+def _metadata(cfg) -> Dict[str, torch.dtype]:
+    """The batch's metadata that the config's losses read, and the dtype
+    each goes up as."""
+    keys = {}
+    if cfg.use_forward or cfg.use_inverse:
+        keys["actions"] = torch.int64
+    if cfg.use_reward:
+        keys["reward_classes"] = torch.int64
+    if cfg.use_priors:
+        keys.update(_PAIRS)
+    return keys
+
 
 def _inputs(model: SRLModules, frames: torch.Tensor,
-            batch: Dict[str, np.ndarray]):
+            batch: Dict[str, np.ndarray],
+            generator: Optional[torch.Generator] = None) -> Dict:
+    """The model's and the loss's inputs on the device: ``obs``,
+    ``next_obs`` (None unless a loss reads it), ``valid``, ``batch`` (the
+    metadata tensors) and ``noise`` (the VAE's eps in train mode)."""
+    cfg = model.cfg
     dev = frames.device
     idx = torch.from_numpy(batch["indices"].astype(np.int64)).to(dev)
-    valid = torch.from_numpy(batch["valid"].astype(np.float32)).to(dev)
-    obs = gather_normalize(frames, idx, model.cfg.normalize_mode)
-    return obs, valid
+    obs = gather_normalize(frames, idx, cfg.normalize_mode)
+    next_obs = gather_normalize(
+        frames, (idx + 1).clamp_max(frames.shape[0] - 1),
+        cfg.normalize_mode) if cfg.needs_next_obs else None
+    tensors = {k: torch.from_numpy(np.asarray(batch[k])).to(dev, dt)
+               for k, dt in _metadata(cfg).items()}
+    noise = None
+    if cfg.use_vae and model.training:
+        shape = (len(idx), cfg.state_dim)
+        noise = {name: torch.randn(shape, generator=generator, device=dev)
+                 for name in ("state", "next_state")[:1 + cfg.needs_next_obs]}
+    return {"obs": obs, "next_obs": next_obs,
+            "valid": torch.from_numpy(batch["valid"].astype(np.float32)).to(
+                dev), "batch": tensors, "noise": noise}
 
 
-def _loss(model: SRLModules, obs: torch.Tensor, valid: torch.Tensor):
-    outputs = model(obs)
-    return compute_total_loss(model.cfg, outputs, obs, valid,
-                              model.parameters())
+def _loss(model: SRLModules, inputs: Dict):
+    outputs = model(inputs["obs"], inputs["next_obs"],
+                    inputs["batch"].get("actions"), inputs["noise"])
+    return compute_total_loss(model.cfg, outputs, inputs["obs"],
+                              inputs["valid"], model.parameters(),
+                              inputs["batch"])
 
 
 def train_step(model: SRLModules, optimizer: torch.optim.Optimizer,
-               frames: torch.Tensor, batch: Dict[str, np.ndarray]
-               ) -> Dict[str, torch.Tensor]:
+               frames: torch.Tensor, batch: Dict[str, np.ndarray],
+               generator: torch.Generator) -> Dict[str, torch.Tensor]:
     """One update in train mode (BatchNorm batch statistics, running
-    averages updated). Returns the batch's metrics, on the device."""
+    averages updated; the VAE's eps drawn from ``generator``). Returns
+    the batch's metrics, on the device."""
     model.train()
-    obs, valid = _inputs(model, frames, batch)
-    total, metrics = _loss(model, obs, valid)
+    total, metrics = _loss(model, _inputs(model, frames, batch, generator))
     optimizer.zero_grad(set_to_none=True)
     total.backward()
     optimizer.step()
@@ -53,8 +94,8 @@ def train_step(model: SRLModules, optimizer: torch.optim.Optimizer,
 
 def eval_step(model: SRLModules, frames: torch.Tensor,
               batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    """The batch's metrics in eval mode (running statistics), no update."""
+    """The batch's metrics in eval mode (running statistics, the VAE's
+    mu), no update."""
     model.eval()
     with torch.no_grad():
-        obs, valid = _inputs(model, frames, batch)
-        return _loss(model, obs, valid)[1]
+        return _loss(model, _inputs(model, frames, batch))[1]

@@ -312,7 +312,9 @@ def test_port_imports_neither_jax_nor_the_jax_package(port_run,
         "import srl_zoo_tpu_torch.train, srl_zoo_tpu_torch.evaluation.gtc\n"
         "from srl_zoo_tpu_torch.training import learner, train_step\n"
         "from srl_zoo_tpu_torch.losses import registry\n"
-        "from srl_zoo_tpu_torch.data import loader\n"
+        "from srl_zoo_tpu_torch.data import loader, samplers\n"
+        "from srl_zoo_tpu_torch.models import heads\n"
+        "from srl_zoo_tpu_torch.ops import pairwise\n"
         "from srl_zoo_tpu_torch.evaluation.knn import knn_mse\n"
         "from srl_zoo_tpu_torch.inference import StateEncoder\n"
         f"run = {port_run!r}\n"

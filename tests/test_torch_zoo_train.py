@@ -23,7 +23,9 @@ bridged into the port. Tolerances, each with its reason:
   the two epochs), and the same best epoch.
 """
 
+import contextlib
 import dataclasses
+import functools
 import json
 import os
 
@@ -41,6 +43,22 @@ from srl_zoo_tpu_torch.ops.fused_pool import (relu_max_pool,
                                               relu_max_pool_bwd,
                                               relu_max_pool_bwd_plain,
                                               relu_max_pool_plain)
+
+
+@contextlib.contextmanager
+def _one_torch_thread():
+    """One intra-op thread for a training run: pytest-xdist runs the suite
+    in several worker processes at once, and a thread per core in each of
+    them oversubscribes the cores (the learner and CLI tests ran about
+    five times slower with six workers). The step tests keep torch's
+    default: their gradients are held to JAX's at rounding level, and the
+    thread count sets torch's order of summation."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
 
 STATE_DIM = 4
 BS = 16
@@ -265,65 +283,203 @@ def _jax_batch(idx):
             "rewards": jnp.zeros(len(idx), jnp.float32)}
 
 
-def _step_setup():
+# BASELINE configs 1-4 at 32 px: (losses, split dimensions); config 4's
+# splits are 100/50/25/25 of 200, cut here to 4/2/1/1 of 8
+CONFIGS = {
+    "autoencoder": ((("autoencoder", 1.0),), (("autoencoder", -1),)),
+    "vae": ((("vae", 1.0),), (("vae", -1),)),
+    "priors": ((("priors", 1.0),), (("priors", -1),)),
+    "splits": ((("autoencoder", 1.0), ("inverse", 2.0), ("forward", 1.0),
+                ("reward", 1.0)),
+               (("autoencoder", 4), ("inverse", 2), ("forward", 1),
+                ("reward", 1))),
+}
+
+
+def _jcfg(name, **kw):
+    losses, splits = CONFIGS[name]
+    return JaxConfig(state_dim=STATE_DIM if name == "autoencoder" else 8,
+                     losses=losses, split_dims=splits, img_height=32,
+                     img_width=32, batch_size=BS, n_actions=4,
+                     n_reward_classes=3, **kw)
+
+
+def _np_batch(idx, actions, reward_classes, pair_rng=None):
+    """A loader-style batch of rows ``idx``; with ``pair_rng`` it carries
+    the priors' pairs too."""
+    from srl_zoo_tpu_torch.data import samplers
+    batch = {"indices": idx.astype(np.int32),
+             "valid": np.ones(len(idx), np.float32),
+             "actions": actions[idx], "reward_classes": reward_classes[idx],
+             "rewards": np.zeros(len(idx), np.float32)}
+    if pair_rng is not None:
+        (batch["same_action_partners"],
+         batch["same_action_mask"]) = samplers.find_same_action_pairs(
+            actions[idx], pair_rng)
+        (batch["dissimilar_partners"],
+         batch["dissimilar_mask"]) = samplers.find_dissimilar_pairs(
+            actions[idx], reward_classes[idx], pair_rng)
+    return batch
+
+
+@functools.lru_cache(maxsize=None)
+def _step_setup(name="autoencoder"):
     """Random uint8 frames (a batch of them spreads every BatchNorm
-    channel), a 32 px config-1 model from JAX's init, three index batches."""
+    channel), a 32 px model of the config from JAX's init, three batches
+    with random actions and reward classes. Cached per config: the JAX
+    state and the arrays are only read."""
     frames = np.random.RandomState(17).randint(0, 256, (64, 32, 32, 3)
                                                ).astype(np.uint8)
-    jcfg = JaxConfig(state_dim=STATE_DIM, img_height=32, img_width=32,
-                     batch_size=BS)
+    jcfg = _jcfg(name)
     jmodel, state, tx = _jax_state(jcfg, seed=2)
     rng = np.random.RandomState(15)
-    batches = [rng.choice(len(frames), BS, replace=False) for _ in range(3)]
+    rows = [rng.choice(len(frames), BS, replace=False) for _ in range(3)]
+    meta = np.random.RandomState(19)
+    actions = meta.randint(0, 4, len(frames)).astype(np.int32)
+    reward_classes = meta.randint(0, 3, len(frames)).astype(np.int32)
+    batches = [_np_batch(idx, actions, reward_classes,
+                         meta if jcfg.use_priors else None) for idx in rows]
     return frames, jcfg, jmodel, state, tx, batches
 
 
-def _jax_grads(frames, jcfg, jmodel, state, idx):
-    """(loss, port-named state dict of the gradients and the updated BN
-    statistics) of one JAX train-mode apply."""
+def _eps(jcfg):
+    """The VAE noise the port's step draws from a generator seeded with 0:
+    one (B, state_dim) normal for the state, one for the next state."""
+    if not jcfg.use_vae:
+        return []
+    g = torch.Generator().manual_seed(0)
+    return [torch.randn((BS, jcfg.state_dim), generator=g).numpy()
+            for _ in range(1 + jcfg.needs_next_obs)]
+
+
+@contextlib.contextmanager
+def _jax_normal_returns(arrays):
+    """Make ``jax.random.normal`` return the given arrays in turn (the
+    VAE's sampling calls it once per encoded batch), so that JAX samples
+    the port's eps."""
+    queue = list(arrays)
+    real = jax.random.normal
+
+    def fake(key, shape, dtype=jnp.float32):
+        eps = queue.pop(0)
+        assert eps.shape == tuple(shape)
+        return jnp.asarray(eps, dtype)
+
+    jax.random.normal = fake
+    try:
+        yield
+    finally:
+        jax.random.normal = real
+    assert not queue
+
+
+def _jax_apply(frames, jcfg, jmodel, params, batch_stats, batch):
+    """JAX train-mode outputs, loss and updated BN statistics of a batch."""
     from srl_zoo_tpu.losses.registry import compute_total_loss as jax_loss
     from srl_zoo_tpu.ops.preproc import normalize_images
+    idx = batch["indices"]
+    obs = normalize_images(jnp.asarray(frames[idx]), "tf")
+    nxt = normalize_images(jnp.asarray(frames[np.minimum(
+        idx + 1, len(frames) - 1)]), "tf") if jcfg.needs_next_obs else None
+    actions = jnp.asarray(batch["actions"]) if jcfg.use_forward else None
+    outputs, mutated = jmodel.apply(
+        {"params": params, "batch_stats": batch_stats}, obs, nxt, actions,
+        train=True, rngs={"sampling": jax.random.PRNGKey(0)},
+        mutable=["batch_stats"])
+    total, _ = jax_loss(jcfg, outputs, {k: jnp.asarray(v)
+                                        for k, v in batch.items()},
+                        obs, params)
+    return total, (mutated["batch_stats"], outputs)
 
-    def loss_fn(params):
-        obs = normalize_images(jnp.asarray(frames[idx]), "tf")
-        outputs, mutated = jmodel.apply(
-            {"params": params, "batch_stats": state.batch_stats}, obs,
-            train=True, mutable=["batch_stats"])
-        total, _ = jax_loss(jcfg, outputs, _jax_batch(idx), obs, params)
-        return total, mutated["batch_stats"]
 
-    (loss, stats), grads = jax.jit(jax.value_and_grad(
-        loss_fn, has_aux=True))(state.params)
+def _jax_grads(frames, jcfg, jmodel, state, batch):
+    """(loss, port-named state dict of the gradients and the updated BN
+    statistics) of one JAX train-mode apply."""
+    with _jax_normal_returns(_eps(jcfg)):
+        (loss, (stats, _)), grads = jax.jit(jax.value_and_grad(
+            lambda p: _jax_apply(frames, jcfg, jmodel, p, state.batch_stats,
+                                 batch), has_aux=True))(state.params)
     sd, _ = bridge.state_dict_from_jax(jax.device_get(grads),
                                        jax.device_get(stats))
     return float(loss), sd
 
 
-def _port_grads(jcfg, state, frames, idx):
+def _port_grads(jcfg, state, frames, batch):
     from srl_zoo_tpu_torch.training.train_step import _inputs, _loss
     cfg, model = _port_model(jcfg, state)
     model.train()
-    obs, valid = _inputs(model, torch.from_numpy(frames),
-                         {"indices": idx, "valid": np.ones(BS, np.float32)})
-    total, metrics = _loss(model, obs, valid)
+    total, metrics = _loss(model, _inputs(model, torch.from_numpy(frames),
+                                          batch,
+                                          torch.Generator().manual_seed(0)))
     total.backward()
     assert float(metrics["_n_valid"]) == BS
     return float(total.detach()), model
 
 
-def test_train_step_matches_jax(two_pass_bn_variance):
+@pytest.mark.parametrize("name", ["vae", "priors", "splits"])
+def test_srl_modules_forward_matches_jax(name, two_pass_bn_variance):
+    """Every output of a train-mode forward (obs, next obs, actions, the
+    VAE's eps taken from the JAX side) within 1e-4 of its largest
+    magnitude, and the BN statistics after it."""
+    frames, jcfg, jmodel, state, _, batches = _step_setup(name)
+    batch = batches[0]
+    eps = _eps(jcfg)
+    with _jax_normal_returns(eps):
+        _, (stats, want) = jax.jit(lambda p: _jax_apply(
+            frames, jcfg, jmodel, p, state.batch_stats, batch))(state.params)
+    _, model = _port_model(jcfg, state)
+    model.train()
+    idx = batch["indices"]
+
+    def obs(rows):
+        return torch.from_numpy(frames[rows].astype(np.float32) / 127.5
+                                - 1.0)
+    got = model(obs(idx),
+                obs(np.minimum(idx + 1, len(frames) - 1))
+                if jcfg.needs_next_obs else None,
+                torch.from_numpy(batch["actions"]),
+                dict(zip(("state", "next_state"),
+                         map(torch.from_numpy, eps))))
+    want = {k: v for k, v in want.items() if v is not None}
+    assert set(got) == set(want)
+    for k, v in want.items():
+        _close_rel_max(got[k].detach().numpy(), np.asarray(v), 1e-4)
+    if jcfg.use_vae:
+        start, size = jcfg.slices["vae"]
+        z = got["mu"] + torch.exp(0.5 * got["logvar"]) * torch.from_numpy(
+            eps[0])
+        assert torch.equal(got["state"][:, start:start + size],
+                           z[:, start:start + size])
+    want_sd, _ = bridge.state_dict_from_jax(jax.device_get(state.params),
+                                            jax.device_get(stats))
+    for name_, buf in model.named_buffers():
+        if "running" in name_:
+            _close_rel_max(buf.numpy(), want_sd[name_].numpy(), 1e-5)
+
+
+@pytest.mark.parametrize("name", ["autoencoder", "vae", "priors", "splits"])
+def test_train_step_matches_jax(name, two_pass_bn_variance):
     from srl_zoo_tpu.training.train_step import build_steps
     from srl_zoo_tpu_torch.training.state import make_optimizer
     from srl_zoo_tpu_torch.training.train_step import train_step
-    frames, jcfg, jmodel, state, tx, batches = _step_setup()
+    frames, jcfg, jmodel, state, tx, batches = _step_setup(name)
     want_loss, want_sd = _jax_grads(frames, jcfg, jmodel, state, batches[0])
     loss, model = _port_grads(jcfg, state, frames, batches[0])
     np.testing.assert_allclose(loss, want_loss, rtol=1e-5)
     _check_grads(model, want_sd)
-    for name, buf in model.named_buffers():
-        if "running" in name:
-            np.testing.assert_allclose(buf.numpy(), want_sd[name].numpy(),
+    for name_, buf in model.named_buffers():
+        if "running" in name_:
+            np.testing.assert_allclose(buf.numpy(), want_sd[name_].numpy(),
                                        rtol=0, atol=1e-5)
+    if name != "autoencoder":
+        # The three Adam steps hold config 1 only. JAX's train step draws
+        # the VAE's eps itself. The priors are invariant to a shift of the
+        # state, so the Dense bias has an exact gradient of 0, and Adam's
+        # first steps move each such element by about lr in the direction
+        # of its rounding noise, in either package: after three steps
+        # such elements differ by several lr. The two-epoch test below
+        # holds configs 3 and 4 over whole epochs instead.
+        return
 
     # three optimizer steps in both packages, from the same start
     train_jax = build_steps(jcfg, jmodel, tx)[0]
@@ -331,17 +487,18 @@ def test_train_step_matches_jax(two_pass_bn_variance):
     cfg, model = _port_model(jcfg, state)
     opt = make_optimizer(cfg, model)
     store = torch.from_numpy(frames)
-    for idx in batches:
-        state, _ = train_jax(state, _jax_batch(idx), jax.random.PRNGKey(0),
-                             cache)
-        train_step(model, opt, store,
-                   {"indices": idx, "valid": np.ones(BS, np.float32)})
+    gen = torch.Generator().manual_seed(0)
+    for batch in batches:
+        state, _ = train_jax(state, {k: jnp.asarray(v)
+                                     for k, v in batch.items()},
+                             jax.random.PRNGKey(0), cache)
+        train_step(model, opt, store, batch, gen)
     want_sd, _ = bridge.state_dict_from_jax(jax.device_get(state.params),
                                             jax.device_get(state.batch_stats))
     lr = cfg.learning_rate
     deltas = np.concatenate([
-        np.abs(p.detach().numpy() - want_sd[name].numpy()).ravel()
-        for name, p in model.named_parameters()])
+        np.abs(p.detach().numpy() - want_sd[name_].numpy()).ravel()
+        for name_, p in model.named_parameters()])
     assert deltas.max() <= 3 * lr, deltas.max()
     assert np.median(deltas) <= 1e-5, np.median(deltas)
     assert np.percentile(deltas, 95) <= 1e-4, np.percentile(deltas, 95)
@@ -423,7 +580,8 @@ def test_jax_one_pass_bn_variance_strays_from_the_port(monkeypatch):
 
     from srl_zoo_tpu_torch.ops.preproc import normalize_images
     m64 = _port_model(jcfg, state)[1].double().train()
-    x = normalize_images(torch.from_numpy(frames[batches[0]]), "tf").double()
+    x = normalize_images(torch.from_numpy(frames[batches[0]["indices"]]),
+                         "tf").double()
     ((m64(x)["recon"] - x) ** 2).mean().backward()
     f64 = {n: p.grad.float() for n, p in m64.named_parameters()}
     _check_grads(model, f64)
@@ -433,9 +591,10 @@ def test_jax_one_pass_bn_variance_strays_from_the_port(monkeypatch):
 # (e) loader and split
 # ---------------------------------------------------------------------------
 
+@pytest.mark.parametrize("priors", [False, True])
 @pytest.mark.parametrize("n_rows", [None, 5])
 @pytest.mark.parametrize("train", [True, False])
-def test_loader_batches_equal_jax(synthetic_dataset, n_rows, train):
+def test_loader_batches_equal_jax(synthetic_dataset, n_rows, train, priors):
     from srl_zoo_tpu.data.loader import DataLoader as JaxLoader
     from srl_zoo_tpu_torch.data.loader import DataLoader
     from srl_zoo_tpu_torch.data.schema import load_dataset
@@ -443,11 +602,10 @@ def test_loader_batches_equal_jax(synthetic_dataset, n_rows, train):
     ds = load_dataset(jds.data_folder)
     idx = np.random.RandomState(16).permutation(jds.training_indices())
     idx = idx[:n_rows] if n_rows else idx[:-3]
-    jcfg = JaxConfig(state_dim=STATE_DIM, img_height=32, img_width=32,
-                     batch_size=BS)
+    jcfg = _jcfg("priors" if priors else "autoencoder")
     kw = dict(shuffle=train, seed=7, wraparound=train)
     want = JaxLoader(jds, idx, jcfg, emit_images=False, **kw)
-    got = DataLoader(ds, idx, BS, **kw)
+    got = DataLoader(ds, idx, BS, priors=priors, **kw)
     assert len(got) == len(want)
     for _ in range(2):
         wb, gb = list(want), list(got)
@@ -480,14 +638,28 @@ def test_split_equals_the_jax_learner(synthetic_dataset):
 # (f) two epochs of the learner from the same start
 # ---------------------------------------------------------------------------
 
-def test_two_epochs_of_the_learner_match_jax(synthetic_dataset,
+@pytest.mark.parametrize("name", ["autoencoder", "priors", "splits"])
+def test_two_epochs_of_the_learner_match_jax(name, synthetic_dataset,
                                              tmp_path_factory,
                                              two_pass_bn_variance):
+    """The epoch means of the loss history within 2e-2: every train
+    mean (the priors' pair terms weighted by their pair counts), the
+    validation total and the priors' validation terms. Config 2 draws its
+    noise from torch on one side and jax.random on the other: its one-step
+    test stands in.
+
+    Configs 3 and 4 run at lr 1e-4. At their lr of 5e-3 two epochs of
+    five steps are chaotic at this size: a 1e-6 relative perturbation of
+    the port's own initial weights moves their epoch means by more than
+    this tolerance (test_two_epochs_of_priors_at_lr_5e3_are_chaotic). At
+    1e-4 config 4's validation forward loss, a small MSE read through
+    eval-mode BatchNorm, still moves by about as much as it differs from
+    JAX's, so it is held through the validation total."""
     from srl_zoo_tpu.training.learner import SRL4robotics as JaxLearner
     from srl_zoo_tpu_torch.data.schema import load_dataset
     from srl_zoo_tpu_torch.training.learner import SRL4robotics
-    jcfg = JaxConfig(state_dim=STATE_DIM, img_height=32, img_width=32,
-                     batch_size=BS, epochs=2, seed=4)
+    jcfg = _jcfg(name, epochs=2, seed=4,
+                 **({} if name == "autoencoder" else {"learning_rate": 1e-4}))
     jdir = str(tmp_path_factory.mktemp("jax_learn"))
     tdir = str(tmp_path_factory.mktemp("port_learn"))
     jl = JaxLearner(jcfg, log_folder=jdir)
@@ -497,25 +669,80 @@ def test_two_epochs_of_the_learner_match_jax(synthetic_dataset,
                                        jax.device_get(jl.state.batch_stats))
     pl.model.load_state_dict(sd)
     jl.learn(synthetic_dataset)
-    pl.learn(load_dataset(synthetic_dataset.data_folder))
+    with _one_torch_thread():
+        pl.learn(load_dataset(synthetic_dataset.data_folder))
     want = np.load(os.path.join(jdir, "loss_history.npz"))
     got = np.load(os.path.join(tdir, "loss_history.npz"))
     assert set(got.files) == set(want.files)
-    for k in ("train/total", "val/total"):
-        np.testing.assert_allclose(got[k], want[k], rtol=2e-2, err_msg=k)
+    for k in got.files:
+        if k.startswith(("train/", "val/total", "val/priors")):
+            np.testing.assert_allclose(got[k], want[k], rtol=2e-2, err_msg=k)
     assert np.argmin(got["val/total"]) == np.argmin(want["val/total"])
+
+
+@pytest.mark.parametrize("lr,chaotic", [(5e-3, True), (1e-4, False)])
+def test_two_epochs_of_priors_at_lr_5e3_are_chaotic(lr, chaotic,
+                                                    synthetic_dataset,
+                                                    tmp_path):
+    """Why the two-epoch comparison of configs 3 and 4 runs at lr 1e-4:
+    two port runs of config 3 from initial weights that differ by a 1e-6
+    relative perturbation end their epochs more than 2e-2 apart at lr
+    5e-3, and within 2e-2 at lr 1e-4."""
+    from srl_zoo_tpu_torch.data.schema import load_dataset
+    from srl_zoo_tpu_torch.training.learner import SRL4robotics
+    cfg = SRLConfig.from_exp_config(_jcfg(
+        "priors", epochs=2, seed=4, learning_rate=lr).to_exp_config())
+    ds = load_dataset(synthetic_dataset.data_folder)
+    hist = []
+    for eps in (0.0, 1e-6):
+        run = SRL4robotics(cfg, log_folder=str(tmp_path / str(eps)),
+                           device="cpu")
+        g = torch.Generator().manual_seed(3)
+        with torch.no_grad():
+            for p in run.model.parameters():
+                p.mul_(1 + eps * torch.randn(p.shape, generator=g))
+        with _one_torch_thread():
+            run.learn(ds)
+        hist.append(np.load(tmp_path / str(eps) / "loss_history.npz"))
+    rel = max(float(np.abs(hist[1][k] - hist[0][k]).max()
+                    / np.abs(hist[0][k]).max())
+              for k in hist[0].files if k.startswith(("train/", "val/")))
+    assert (rel > 2e-2) == chaotic, rel
 
 
 # ---------------------------------------------------------------------------
 # (g) the CLI, (h) resume
 # ---------------------------------------------------------------------------
 
-def _cli(data_folder, log_folder, epochs, *extra):
+def _cli(data_folder, log_folder, epochs, *extra, losses=("autoencoder",),
+         state_dim=STATE_DIM):
     from srl_zoo_tpu_torch.train import main
-    return main(["--data-folder", data_folder, "--losses", "autoencoder",
-                 "--state-dim", str(STATE_DIM), "-bs", str(BS), "--epochs",
-                 str(epochs), "--log-folder", log_folder, "--device", "cpu",
-                 *extra])
+    with _one_torch_thread():
+        return main(["--data-folder", data_folder, "--losses", *losses,
+                     "--state-dim", str(state_dim), "-bs", str(BS),
+                     "--epochs", str(epochs), "--log-folder", log_folder,
+                     "--device", "cpu", *extra])
+
+
+# the --losses tokens of BASELINE configs 2-4, config 4's splits cut to 8
+CLI_LOSSES = {"vae": ("vae",), "priors": ("priors",),
+              "splits": ("autoencoder:1:4", "inverse:2:2", "forward:1:1",
+                         "reward:1:1")}
+
+
+@pytest.fixture(scope="module")
+def config_runs(synthetic_dataset, tmp_path_factory):
+    """Two-epoch CLI runs of configs 2-4 (state_dim 8), made once each."""
+    runs = {}
+
+    def run(name):
+        if name not in runs:
+            runs[name] = _cli(synthetic_dataset.data_folder,
+                              str(tmp_path_factory.mktemp(name) / "run"), 2,
+                              "--beta", "0.5", losses=CLI_LOSSES[name],
+                              state_dim=8)
+        return runs[name]
+    return run
 
 
 @pytest.fixture(scope="module")
@@ -579,6 +806,55 @@ def test_resume_equals_a_straight_run(port_cli_run, synthetic_dataset,
         assert torch.equal(got[k], want[k]), k
     with open(os.path.join(run, "metrics.jsonl")) as f:
         assert [json.loads(line)["epoch"] for line in f] == [0, 1]
+
+
+@pytest.mark.parametrize("name", ["vae", "priors", "splits"])
+def test_cli_trains_configs_2_to_4(name, config_runs, synthetic_dataset):
+    """The run folder of each config loads in both packages with equal
+    fields, its exported states are the encoder's (mu for the VAE), and
+    its loss history holds each loss of the config, finite."""
+    from srl_zoo_tpu_torch.inference import StateEncoder
+    run = config_runs(name)
+    cfg = SRLConfig.load(run)
+    assert dataclasses.asdict(JaxConfig.load(run)) == dataclasses.asdict(cfg)
+    assert cfg.beta == 0.5 and cfg.state_dim == 8
+    out = np.load(os.path.join(run, "states_rewards.npz"))
+    enc = StateEncoder.load(run, device="cpu")
+    np.testing.assert_allclose(out["states"], enc.encode(np.asarray(
+        synthetic_dataset.frames)), rtol=0, atol=1e-5)
+    hist = np.load(os.path.join(run, "loss_history.npz"))
+    for loss in cfg.loss_names:
+        for split in ("train", "val"):
+            assert np.isfinite(hist[f"{split}/{loss}"]).all()
+    if name == "priors":
+        assert {f"train/priors/{t}" for t in (
+            "temporal", "causality", "proportionality", "repeatability")
+        } <= set(hist.files)
+
+
+def test_vae_resume_equals_a_straight_run(config_runs, synthetic_dataset,
+                                          tmp_path):
+    """1 epoch + --resume equals 2 epochs bit for bit for the VAE, whose
+    steps draw noise: the resume checkpoint carries the generator."""
+    straight = config_runs("vae")
+    run = str(tmp_path / "resumed")
+    for epochs, extra in ((1, ()), (2, ("--resume",))):
+        _cli(synthetic_dataset.data_folder, run, epochs, "--beta", "0.5",
+             *extra, losses=CLI_LOSSES["vae"], state_dim=8)
+    for name in ("loss_history.npz", "states_rewards.npz"):
+        want = np.load(os.path.join(straight, name))
+        got = np.load(os.path.join(run, name))
+        assert set(got.files) == set(want.files)
+        for k in want.files:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    for name in ("srl_model.pth", "checkpoints/state_latest.pth"):
+        want = torch.load(os.path.join(straight, name))
+        got = torch.load(os.path.join(run, name))
+        want = want.get("model", want) | {"generator": want.get("generator")}
+        got = got.get("model", got) | {"generator": got.get("generator")}
+        for k in want:
+            assert (want[k] is None and got[k] is None) or \
+                torch.equal(got[k], want[k]), (name, k)
 
 
 def test_resume_keeps_the_saved_bn_momentum(synthetic_dataset, tmp_path):
@@ -658,7 +934,7 @@ def test_exp_config_round_trips_between_the_packages(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--losses", "vae"], "item 3"),
+    (["--losses", "dae"], "item 3"),
     (["--dtype", "bfloat16"], "item 2"),
     (["--grad-accum", "2"], "item 3"),
     (["--device-cache", "off"], "item 6"),
