@@ -3,6 +3,7 @@
 NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --pools-of CHECKOUT
 
 Needs one CUDA card, nvcc (CUDA_HOME or PATH) and this checkout; it builds
 the kernels of ``srl_zoo_tpu_torch/csrc`` itself. Phases, each of which
@@ -12,12 +13,21 @@ prints its wall time:
 1. The card's name and power limit (nvidia-smi); the kernels' build time.
 2. Each kernel against its plain PyTorch version on the card, at the shapes
    the main paths give it, timed beside its bound:
-   relu + pool (K1) at the three pools of a config-1 forward, at the
-   serve batch (32; f32 and bf16) and the export batch (256; f32), y and
-   argmax exact; its backward (K1b) at the three pools of a batch-32 train
-   step, exact on integer-valued inputs (f32 and bf16) and within 1e-6 of
-   the largest |g| on random floats; gather + normalize (K2) of 256 random
-   rows of a 20,000-frame 224x224x3 store, both modes, 1e-6; distance +
+   relu + pool (K1f) at the three pools of a config-1 forward, at the
+   serve and training batch (32; f32 and bf16) and the export batch (256;
+   f32), y and argmax exact; its backward (K1b) at the three pools of a
+   batch-32 train step, exact on integer-valued inputs (f32 and bf16) and
+   within 1e-6 of the largest |g| on random floats. Both pools must take
+   their vector path there, and each is timed twice: the kernel alone
+   (torch.profiler's device time over 10 calls) and the wrapper (CUDA
+   events over 100 calls, Python included), K1f also as the training
+   forward (with the index plane, at batch 32). Then both pools, exact,
+   at edge shapes that reach the scalar path and the tile edges (C 3, 12,
+   66 and 64 in f32, 12 and 64 in bf16; 9x13 and 1x1 images, B 1, pads
+   of 0, 2 and 1 per side; slices at an odd storage offset), each on the
+   path its shape selects. Gather + normalize (K2) of 256 random rows of
+   a 20,000-frame 224x224x3 store, both modes, and of 32 rows (the
+   training batch), 1e-6, device and wrapper time; distance +
    top-k (K3) at Q=4,096, N=20,000, D=200, k=6, distances within 1e-4
    relative and indices equal except at ties within that tolerance
    (counted); pairwise distances (K4) at the same Q, N, D, each element
@@ -35,7 +45,8 @@ prints its wall time:
    sampled queries with the fused kernel, and the ``full`` route (K4 and a
    stable sort) finds the same queries' 6 nearest. Kernel launch counts
    are zeroed just before and read just after; K1, K2, K3 and K4 must have
-   run. Then the replies are held against a direct encode (1e-5), 64
+   run, and every pool launch must have taken the vector path. Then the
+   replies are held against a direct encode (1e-5), 64
    exported rows against a direct encode (1e-5), the score against the
    plain top-k's (1e-6), the ``full`` route's indices against the fused
    route's (equal but at counted near ties) and its score against the
@@ -53,15 +64,24 @@ prints its wall time:
    for 3 epochs, configs 2-4 for 2), exports its states and scores GTC;
    KNN-MSE of the exported states is then scored through both neighbour
    routes (K3 and K4). Launch counts are zeroed just before and read just
-   after; K1, K1b, K2, K3 and K4 must have run. The training loss must
+   after; K1, K1b, K2, K3 and K4 must have run, the pools on their vector
+   path. The training loss must
    fall, the exported states must match a direct encode (1e-5), and the
    two routes' scores must agree (1e-6); train images/s and export
    states/s are printed. Then each pool's input must be channels_last
    (the pool reads it in place), and 8 train steps of config 1 are
    profiled (device time by kernel, busy share, layout transposes and the
    operations that launch them).
-5. A ``{"kernels": [...]}`` line (launches summed over all the paths), the
-   nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
+5. A ``{"kernels": [...]}`` line (launches summed over all the paths;
+   K1f and K1b with ``device_ms`` beside ``ms``), the nvidia-smi line, and
+   last ``{"ok": true, "device": {...}}``.
+
+With ``--pools-of CHECKOUT`` it imports the port package of another
+checkout (e.g. a ``git archive`` of the parent commit), builds that
+checkout's kernels into its own ``build/``, runs phase 2's K1f and K1b
+main-shape checks and timings alone on them, and prints a ``{"tree": ...,
+"pool_times": [...]}`` line and the card, so that the device times of two
+trees' pools can be compared in one run on one card.
 
 Bounds use the H100 SXM data-sheet rates at 700 W: 3.35 TB/s of device
 memory and 67 TFLOP/s of float32 outside the tensor cores. No single
@@ -76,6 +96,7 @@ from __future__ import annotations
 
 import io
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -101,6 +122,10 @@ TRAIN_EPISODES = 16
 CPU_STEP_BATCH = 8
 PROFILE_STEPS = 8
 KNN_QUERIES = 4096
+POOLS = (IMG[0] // 2, IMG[0] // 8, IMG[0] // 32)  # 112, 28, 7 at 224
+# back-to-back pool calls per wrapper time: at the 28^2 and 7^2 pools a
+# call is host time, which swings with the shared host over 10 calls
+WRAPPER_CALLS = 100
 # BASELINE configs 1-4: name, --losses tokens, epochs here (30 in the
 # configs; cut to stay well inside the script's time limit)
 TRAIN_CONFIGS = (
@@ -152,24 +177,76 @@ def card_line() -> str:
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_pool(dev, g) -> dict:
-    """The three pools of a config-1 forward at the serve batch (32; f32
-    and bf16) and at the export batch (256; f32, the main path's dtype).
-    Returns the f32 sums of the three pools: {"serve": ..., "export": ...}."""
+def device_ms(fn, kernel: str, iters: int = 10) -> float:
+    """Device time of one call of ``fn``: torch.profiler's (CUPTI's) device
+    time of the kernels whose name holds ``kernel`` over ``iters`` calls
+    after a warm-up call, over the calls. Fails unless each call launched
+    one such kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and kernel in e.key]
+    n = sum(e.count for e in evs)
+    if n != iters:
+        raise AssertionError(f"{n} launches of a {kernel} kernel in "
+                             f"{iters} calls")
+    return sum(e.self_device_time_total for e in evs) / iters / 1e3
+
+
+def vector_count(fn):
+    """A pool wrapper's vector-path launches so far (None for a tree whose
+    kernels have no vector path)."""
+    return getattr(fn, "vector_launches", None)
+
+
+def path_of(fn, call):
+    """Run ``call``: its result and the path its one launch of ``fn`` took
+    ("vector", "scalar", or "one" for kernels without a vector path)."""
+    before = vector_count(fn)
+    out = call()
+    if before is None:
+        return out, "one"
+    return out, ("vector" if vector_count(fn) - before == 1 else "scalar")
+
+
+def pool_line(what, shape, dtype, dev_ms, ms, plain, b, by) -> str:
+    return (f"{what} {shape} {str(dtype)[6:]}: device {dev_ms:.4f} ms, "
+            f"wrapper {ms:.4f} ms (plain {plain:.4f} ms), bound {b:.4f} ms "
+            f"by {by}: {100 * b / dev_ms:.1f}% of the bound in device time")
+
+
+def check_pool(dev, g, times: list) -> dict:
+    """K1f at its nine main-path shapes, the three pools of a config-1
+    forward at the serve and training batch (32; f32 and bf16) and at the
+    export batch (256; f32): y and idx equal to the plain version's, the
+    vector path taken; then the device time (torch.profiler) and the
+    wrapper time (CUDA events over WRAPPER_CALLS calls, Python included)
+    of the inference call, and at batch 32 in f32 also of the training
+    call (with the index plane, from an input that requires grad).
+    Appends one record per timing to ``times``. Returns the f32 sums of
+    the three pools: {"serve": ..., "export": ...}."""
     import torch
     from srl_zoo_tpu_torch.evaluation.predict_dataset import BATCH
     from srl_zoo_tpu_torch.ops.fused_pool import (relu_max_pool,
                                                   relu_max_pool_plain)
-    pools = (IMG[0] // 2, IMG[0] // 8, IMG[0] // 32)  # 112, 28, 7 at 224
     batches = {SERVE_BATCH: "serve", BATCH: "export"}
     cases = [((b, hw, hw, 64), dtype)
              for b, dtypes in ((SERVE_BATCH, (torch.float32, torch.bfloat16)),
                                (BATCH, (torch.float32,)))
-             for hw in pools for dtype in dtypes]
+             for hw in POOLS for dtype in dtypes]
     totals = {}
     for shape, dtype in cases:
         x = torch.randn(shape, generator=g, device=dev).to(dtype)
-        y, idx = relu_max_pool(x, with_index=True)
+        (y, idx), path = path_of(relu_max_pool,
+                                 lambda: relu_max_pool(x, with_index=True))
         yp, ip = relu_max_pool_plain(x, with_index=True)
         torch.cuda.synchronize()
         err = float((y.float() - yp.float()).abs().max())
@@ -178,45 +255,66 @@ def check_pool(dev, g) -> dict:
             raise AssertionError(
                 f"relu_max_pool {shape} {dtype}: y err {err}, "
                 f"{int((idx != ip).sum())} argmax mismatches")
+        if path == "scalar":
+            raise AssertionError(f"relu_max_pool {shape} {dtype} took the "
+                                 "scalar path")
         del idx, ip, yp
-        ms = time_ms(lambda: relu_max_pool(x))
-        plain = time_ms(lambda: relu_max_pool_plain(x))
         es = x.element_size()
-        nbytes = (x.numel() + y.numel()) * es  # inference: no idx plane
         ops = 10 * y.numel()  # nine compares + relu per output
-        b, by = bound(nbytes, ops)
-        log(f"K1 relu_max_pool {shape} {str(dtype)[6:]}: y+idx exact; "
-            f"{ms:.4f} ms (plain {plain:.4f} ms, bound {b:.4f} ms by {by})")
-        if dtype == torch.float32:
-            t = totals.setdefault(batches[shape[0]], dict.fromkeys(
-                ("ms", "plain_ms", "bytes", "ops", "err"), 0.0))
-            t["ms"] += ms
-            t["plain_ms"] += plain
-            t["bytes"] += nbytes
-            t["ops"] += ops
-            t["err"] = max(t["err"], err)
+        runs = [("K1f relu_max_pool", lambda: relu_max_pool(x),
+                 (x.numel() + y.numel()) * es, False)]
+        if shape[0] == TRAIN_BATCH and dtype == torch.float32:
+            xg = x.detach().requires_grad_()
+            # the training forward: an autograd node and the index plane,
+            # one byte per output
+            runs.append(("K1f relu_max_pool, training forward (+idx)",
+                         lambda: relu_max_pool(xg),
+                         (x.numel() + y.numel()) * es + y.numel(), True))
+        for what, call, nbytes, index in runs:
+            dev_ms = device_ms(call, "relu_max_pool_fwd")
+            ms = time_ms(call, iters=WRAPPER_CALLS)
+            plain = time_ms(lambda: relu_max_pool_plain(x, with_index=index))
+            b, by = bound(nbytes, ops)
+            log(pool_line(what, shape, dtype, dev_ms, ms, plain, b, by)
+                + (f"; y+idx exact, {path} path" if not index else ""))
+            times.append({"kernel": "K1f", "shape": list(shape),
+                          "dtype": str(dtype)[6:], "index": index,
+                          "device_ms": dev_ms, "ms": ms, "plain_ms": plain,
+                          "bound_ms": b})
+            if dtype == torch.float32 and not index:
+                t = totals.setdefault(batches[shape[0]], dict.fromkeys(
+                    ("ms", "device_ms", "plain_ms", "bytes", "ops", "err"),
+                    0.0))
+                t["ms"] += ms
+                t["device_ms"] += dev_ms
+                t["plain_ms"] += plain
+                t["bytes"] += nbytes
+                t["ops"] += ops
+                t["err"] = max(t["err"], err)
     for path, t in totals.items():
         b, by = bound(t["bytes"], t["ops"])
-        log(f"K1 relu_max_pool f32, the three pools of a {path} batch: "
-            f"{t['ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, bound "
-            f"{b:.4f} ms by {by})")
+        log(f"K1f relu_max_pool f32, the three pools of a {path} batch: "
+            f"device {t['device_ms']:.4f} ms, wrapper {t['ms']:.4f} ms "
+            f"(plain {t['plain_ms']:.4f} ms), bound {b:.4f} ms by {by}")
     return totals
 
 
-def check_pool_bwd(dev, g) -> dict:
-    """K1's backward against its plain version at the three pools of a
-    config-1 train step (batch 32, f32): exact on integer-valued inputs
-    and cotangents (every sum exact), and within 1e-6 of the largest |g|
-    on random floats (both add the nine window positions in raster order
-    in f32, so 0 is expected); bf16 on integer values, exact. Returns the
-    f32 sums of the three pools."""
+def check_pool_bwd(dev, g, times: list) -> dict:
+    """K1b at the three pools of a config-1 train step (batch 32): exact on
+    integer-valued inputs and cotangents (every sum exact) in f32 and bf16,
+    and within 1e-6 of the largest |g| on random floats in f32 (both add
+    the nine window positions in raster order in f32, so 0 is expected);
+    the vector path taken; the device time (torch.profiler) and the
+    wrapper time (CUDA events over WRAPPER_CALLS calls) in f32. Appends
+    one record per timing to ``times``. Returns the f32 sums of the three
+    pools."""
     import torch
     from srl_zoo_tpu_torch.ops.fused_pool import (relu_max_pool_bwd,
                                                   relu_max_pool_bwd_plain,
                                                   relu_max_pool_plain)
-    pools = (IMG[0] // 2, IMG[0] // 8, IMG[0] // 32)  # 112, 28, 7 at 224
-    t = dict.fromkeys(("ms", "plain_ms", "bytes", "ops", "err"), 0.0)
-    for hw in pools:
+    t = dict.fromkeys(("ms", "device_ms", "plain_ms", "bytes", "ops", "err"),
+                      0.0)
+    for hw in POOLS:
         shape = (TRAIN_BATCH, hw, hw, 64)
         for kind, dtype in (("integer", torch.float32),
                             ("random", torch.float32),
@@ -231,7 +329,8 @@ def check_pool_bwd(dev, g) -> dict:
             gy = (torch.randint(-8, 9, gshape, generator=g, device=dev)
                   if kind == "integer" else
                   torch.randn(gshape, generator=g, device=dev)).to(dtype)
-            dx = relu_max_pool_bwd(gy, idx, shape)
+            dx, path = path_of(relu_max_pool_bwd,
+                               lambda: relu_max_pool_bwd(gy, idx, shape))
             ref = relu_max_pool_bwd_plain(gy, idx, shape)
             torch.cuda.synchronize()
             err = float((dx.float() - ref.float()).abs().max())
@@ -240,49 +339,138 @@ def check_pool_bwd(dev, g) -> dict:
             if not err <= tol:
                 raise AssertionError(f"relu_max_pool_bwd {shape} {kind} "
                                      f"{dtype}: max err {err} > {tol}")
+            if path == "scalar":
+                raise AssertionError(f"relu_max_pool_bwd {shape} {dtype} "
+                                     "took the scalar path")
             if dtype != torch.float32 or kind != "random":
                 continue
-            ms = time_ms(lambda: relu_max_pool_bwd(gy, idx, shape))
+            call = lambda: relu_max_pool_bwd(gy, idx, shape)  # noqa: E731
+            dev_ms = device_ms(call, "relu_max_pool_bwd")
+            ms = time_ms(call, iters=WRAPPER_CALLS)
             plain = time_ms(lambda: relu_max_pool_bwd_plain(gy, idx, shape))
             # read g and idx once per output, write dx once per input
             nbytes = gy.numel() * (4 + 1) + dx.numel() * 4
             ops = 8 * dx.numel()  # <= 4 compares and 4 adds per input
             b, by = bound(nbytes, ops)
-            log(f"K1b relu_max_pool_bwd {shape} f32: integer inputs exact, "
-                f"random max err {err:.3g}; {ms:.4f} ms (plain {plain:.4f} "
-                f"ms, bound {b:.4f} ms by {by})")
+            log(pool_line("K1b relu_max_pool_bwd", shape, dtype, dev_ms, ms,
+                          plain, b, by)
+                + f"; integer inputs exact in f32 and bf16, random max err "
+                f"{err:.3g}, {path} path")
+            times.append({"kernel": "K1b", "shape": list(shape),
+                          "dtype": "float32", "index": True,
+                          "device_ms": dev_ms, "ms": ms, "plain_ms": plain,
+                          "bound_ms": b})
             t["ms"] += ms
+            t["device_ms"] += dev_ms
             t["plain_ms"] += plain
             t["bytes"] += nbytes
             t["ops"] += ops
             t["err"] = max(t["err"], err)
     b, by = bound(t["bytes"], t["ops"])
     log(f"K1b relu_max_pool_bwd f32, the three pools of a train step: "
-        f"{t['ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, bound {b:.4f} ms "
-        f"by {by}, {t['bytes'] / 1e6:.1f} MB); bf16 exact too")
+        f"device {t['device_ms']:.4f} ms, wrapper {t['ms']:.4f} ms (plain "
+        f"{t['plain_ms']:.4f} ms), bound {b:.4f} ms by {by}, "
+        f"{t['bytes'] / 1e6:.1f} MB")
     return t
 
 
+def check_pool_edges(dev, g) -> None:
+    """K1f (y and idx) and K1b (dx) equal to their plain versions at the
+    shapes that reach the scalar path and the vector path's tile edges:
+    C in {3, 12, 66, 64} in f32 and {12, 64} in bf16, 9 x 13 and 1 x 1
+    images, B = 1, pads ((0, 0), (0, 0)), ((2, 0), (0, 2)) and ((1, 1),
+    (1, 1)), and inputs that are contiguous slices at a storage offset of
+    one element (not a multiple of 16 bytes); integer-valued inputs and
+    cotangents, so every sum is exact. Each call must take the path its
+    shape and alignment select, and a pool with no output must raise."""
+    import torch
+    from srl_zoo_tpu_torch.ops.fused_pool import (relu_max_pool,
+                                                  relu_max_pool_bwd,
+                                                  relu_max_pool_bwd_plain,
+                                                  relu_max_pool_plain)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(1, hw, c, dtype, pads, False)
+             for c, dtype in ((3, f32), (12, f32), (66, f32), (64, f32),
+                              (12, bf16), (64, bf16))
+             for hw in ((9, 13), (1, 1))
+             for pads in (((0, 0), (0, 0)), ((2, 0), (0, 2)),
+                          ((1, 1), (1, 1)))]
+    cases += [(3, (9, 13), 64, dtype, "SAME", True) for dtype in (f32, bf16)]
+    n = {"vector": 0, "scalar": 0}
+    for b, (h, w), c, dtype, pads, offset in cases:
+        shape = (b, h, w, c)
+        numel = b * h * w * c
+
+        def ints(lo, hi, count):
+            flat = torch.randint(lo, hi, (count + offset,), generator=g,
+                                 device=dev).to(dtype)
+            return flat[int(offset):]  # offset: 2 or 4 bytes in
+
+        x = ints(-2, 3, numel).view(shape)
+        if pads == ((0, 0), (0, 0)) and h == 1:
+            try:
+                relu_max_pool(x, pads)
+            except ValueError:
+                continue
+            raise AssertionError("relu_max_pool accepted a pool with no "
+                                 "output")
+        want = "vector" if (c * x.element_size()) % 16 == 0 and not offset \
+            else "scalar"
+        (y, idx), path = path_of(
+            relu_max_pool, lambda: relu_max_pool(x, pads, with_index=True))
+        yp, ip = relu_max_pool_plain(x, pads, with_index=True)
+        gy = ints(-8, 9, yp.numel()).view(yp.shape)
+        dx, bpath = path_of(relu_max_pool_bwd,
+                            lambda: relu_max_pool_bwd(gy, ip, shape, pads))
+        ref = relu_max_pool_bwd_plain(gy, ip, shape, pads)
+        torch.cuda.synchronize()
+        if not (torch.equal(y, yp) and torch.equal(idx, ip)
+                and torch.equal(relu_max_pool(x, pads), yp)
+                and torch.equal(dx, ref)):
+            raise AssertionError(
+                f"pool edge {shape} {dtype} pads {pads} offset {offset}: "
+                f"y err {float((y.float() - yp.float()).abs().max())}, "
+                f"{int((idx != ip).sum())} argmax mismatches, dx err "
+                f"{float((dx.float() - ref.float()).abs().max())}")
+        if path != want or bpath != want:
+            raise AssertionError(f"pool edge {shape} {dtype} pads {pads}: "
+                                 f"forward took the {path} path, backward "
+                                 f"the {bpath}, expected {want}")
+        n[want] += 1
+    log(f"K1f and K1b at {sum(n.values())} edge shapes (C 3/12/66/64 f32, "
+        f"12/64 bf16, 9x13 and 1x1, B 1, three pads, offset slices): y, "
+        f"idx and dx exact; {n['vector']} on the vector path, "
+        f"{n['scalar']} on the scalar path")
+
+
 def check_gather(store, dev, g) -> dict:
+    """K2 against its plain version at the export batch (256 rows) in both
+    modes, and in config 1's mode at the training batch (32 rows); device
+    time (torch.profiler) beside the wrapper's (CUDA events, which include
+    the wrapper's readback of the out-of-range flag). Returns the 256-row
+    "tf" numbers."""
     import torch
     from srl_zoo_tpu_torch.ops.gather_norm import (gather_normalize,
                                                    gather_normalize_plain)
     n = store.shape[0]
-    idx = torch.randint(0, n, (256,), generator=g, device=dev)
     res = {}
-    for mode in ("tf", "image_net"):
+    for rows, mode in ((256, "tf"), (256, "image_net"), (TRAIN_BATCH, "tf")):
+        idx = torch.randint(0, n, (rows,), generator=g, device=dev)
         out = gather_normalize(store, idx, mode)
         ref = gather_normalize_plain(store, idx, mode)
         err = float((out - ref).abs().max())
         if err > 1e-6:
             raise AssertionError(f"gather_normalize {mode}: max err {err}")
-        ms = time_ms(lambda: gather_normalize(store, idx, mode))
+        call = lambda: gather_normalize(store, idx, mode)  # noqa: E731
+        dev_ms = device_ms(call, "gather_norm")
+        ms = time_ms(call)
         plain = time_ms(lambda: gather_normalize_plain(store, idx, mode))
         nbytes = out.numel() * 5 + idx.numel() * 8
         b, by = bound(nbytes, 2 * out.numel())
-        log(f"K2 gather_normalize {mode} B=256 of N={n}: max err {err:.3g}; "
-            f"{ms:.4f} ms (plain {plain:.4f} ms, bound {b:.4f} ms by {by})")
-        if mode == "tf":  # config 1's mode
+        log(f"K2 gather_normalize {mode} B={rows} of N={n}: max err "
+            f"{err:.3g}; device {dev_ms:.4f} ms, wrapper {ms:.4f} ms (plain "
+            f"{plain:.4f} ms), bound {b:.4f} ms by {by}")
+        if rows == 256 and mode == "tf":  # config 1's mode, export batch
             res = {"ms": ms, "plain_ms": plain, "bytes": nbytes,
                    "ops": 2 * out.numel(), "err": err}
     try:
@@ -492,6 +680,26 @@ def check_full_route(q, refs, full_idx, queries, gt, score) -> None:
         f"knn_mse {full_score:.9f} vs {score:.9f}")
 
 
+def zero_counts(counters) -> None:
+    for c in counters.values():
+        c.launches = 0
+        if hasattr(c, "vector_launches"):
+            c.vector_launches = 0
+
+
+def read_counts(counters, path: str) -> dict:
+    """Launch counts by kernel; fails unless every pool launch of the path
+    took the vector path."""
+    launches = {k: c.launches for k, c in counters.items()}
+    vector = {k: c.vector_launches for k, c in counters.items()
+              if hasattr(c, "vector_launches")}
+    log(f"{path} launches: {launches}; pools on the vector path: {vector}")
+    if any(vector[k] != launches[k] for k in vector):
+        raise AssertionError(f"a pool launch of the {path} took the scalar "
+                             f"path: {vector} of {launches}")
+    return launches
+
+
 def run_slice(run_dir, frames_np, store, gt, counters) -> dict:
     import torch
     from srl_zoo_tpu_torch.evaluation.knn import (centre, knn_mse,
@@ -532,8 +740,7 @@ def run_slice(run_dir, frames_np, store, gt, counters) -> dict:
 
     try:
         # --- the main path, with the launch counts zeroed just before -----
-        for c in counters.values():
-            c.launches = 0
+        zero_counts(counters)
         # the first round is what the first clients of a fresh server see
         first_replies, first_s = serve_round()
         replies, serve_s = serve_round()
@@ -555,7 +762,7 @@ def run_slice(run_dir, frames_np, store, gt, counters) -> dict:
         full_idx = knn_topk(refs[qi], refs, 6, impl="full")
         torch.cuda.synchronize()
         full_s = time.perf_counter() - t0
-        launches = {name: c.launches for name, c in counters.items()}
+        launches = read_counts(counters, "inference path")
         # --- end of the main path ------------------------------------------
     finally:
         server.shutdown()
@@ -575,7 +782,6 @@ def run_slice(run_dir, frames_np, store, gt, counters) -> dict:
     log(f"knn_mse(k=5, {KNN_QUERIES} queries of {len(states)}): "
         f"{score:.6f} in {knn_s * 1e3:.1f} ms; full route top-6 of the same "
         f"queries in {full_s * 1e3:.1f} ms")
-    log(f"inference path launches: {launches}")
     if not all(launches[k] > 0 for k in INFERENCE_KERNELS):
         raise AssertionError(f"a kernel never ran on the inference path: "
                              f"{launches}")
@@ -620,7 +826,6 @@ def write_train_dataset(folder: str) -> None:
     """A dataset folder of TRAIN_FRAMES 224x224x3 frames in TRAIN_EPISODES
     episodes: a red square walks on a shaded background, and its centre
     (scaled to [0, 1]) is the ground truth; a reward of 1 near the middle."""
-    import os
     rng = np.random.RandomState(SEED)
     n, (h, w, c) = TRAIN_FRAMES, IMG
     ep_len = n // TRAIN_EPISODES
@@ -839,7 +1044,6 @@ def run_training(data_folder: str, run_dir: str, dev, counters, name: str,
     card, then its states scored by KNN-MSE through both neighbour routes,
     with the launch counts zeroed just before and read just after; then
     its outputs are checked."""
-    import os
 
     import torch
     from srl_zoo_tpu_torch import train as train_cli
@@ -852,8 +1056,7 @@ def run_training(data_folder: str, run_dir: str, dev, counters, name: str,
     dataset = load_dataset(data_folder)
     gt = dataset.ground_truth_states
     # --- the training path, with the launch counts zeroed just before -----
-    for c in counters.values():
-        c.launches = 0
+    zero_counts(counters)
     t0 = time.perf_counter()
     train_cli.main(["--data-folder", data_folder, "--losses", *tokens,
                     "--model-type", "custom_cnn", "--state-dim",
@@ -867,11 +1070,10 @@ def run_training(data_folder: str, run_dir: str, dev, counters, name: str,
     q = refs[torch.from_numpy(queries).to(dev)]
     full_idx = knn_topk(q, refs, 6, impl="full")
     torch.cuda.synchronize()
-    launches = {k: c.launches for k, c in counters.items()}
+    launches = read_counts(counters, f"{name} training path")
     # --- end of the training path -----------------------------------------
     log(f"{name}: train CLI ({epochs} epochs, export, GTC) in "
         f"{train_s:.1f} s")
-    log(f"{name}: training path launches: {launches}")
     if not all(launches[k] > 0 for k in TRAINING_KERNELS):
         raise AssertionError(f"a kernel never ran on the training path: "
                              f"{launches}")
@@ -910,7 +1112,36 @@ def run_training(data_folder: str, run_dir: str, dev, counters, name: str,
     return launches
 
 
-def main() -> int:
+def pools_only(card: str, tree: str) -> int:
+    """Phase 2's pool checks and timings alone, on the port package of
+    ``tree`` (another checkout, for a parent-against-change comparison on
+    one card), then one ``{"pool_times": [...]}`` line and the card."""
+    import torch
+    from srl_zoo_tpu_torch.utils.device import (resolve_device,
+                                                use_strict_float32)
+    dev = resolve_device(None)
+    use_strict_float32()
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    times = []
+    t0 = time.perf_counter()
+    check_pool(dev, g, times)
+    check_pool_bwd(dev, g, times)
+    log(f"pools of {tree} in {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"tree": tree, "pool_times": times}))
+    print(card)
+    return 0
+
+
+def main(argv) -> int:
+    tree = None
+    if argv:
+        if len(argv) != 2 or argv[0] != "--pools-of":
+            print("usage: chip_smoke.py [--pools-of CHECKOUT]",
+                  file=sys.stderr)
+            return 2
+        # that checkout's port package, kernels and build directory
+        tree = os.path.abspath(argv[1])
+        sys.path.insert(0, tree)
     try:
         import torch
     except ImportError as e:
@@ -933,6 +1164,8 @@ def main() -> int:
         t0 = time.perf_counter()
         _build.build_all()
         log(f"kernels built in {time.perf_counter() - t0:.1f} s")
+        if tree is not None:
+            return pools_only(card, tree)
 
         from srl_zoo_tpu_torch.checkpoint import save_srl_model
         from srl_zoo_tpu_torch.config import SRLConfig
@@ -958,11 +1191,13 @@ def main() -> int:
             f"{time.perf_counter() - t0:.1f} s")
 
         t0 = time.perf_counter()
-        stats = {"relu_max_pool": check_pool(dev, g)["export"],
-                 "relu_max_pool_bwd": check_pool_bwd(dev, g),
-                 "gather_normalize": check_gather(store, dev, g),
-                 "knn_topk": check_knn(dev, g),
-                 "pairwise_sqdist": check_pairwise(dev, g)}
+        times = []
+        stats = {"relu_max_pool": check_pool(dev, g, times)["export"],
+                 "relu_max_pool_bwd": check_pool_bwd(dev, g, times)}
+        check_pool_edges(dev, g)
+        stats |= {"gather_normalize": check_gather(store, dev, g),
+                  "knn_topk": check_knn(dev, g),
+                  "pairwise_sqdist": check_pairwise(dev, g)}
         log(f"phase 2 (kernels) in {time.perf_counter() - t0:.1f} s")
 
         t0 = time.perf_counter()
@@ -1015,12 +1250,14 @@ def main() -> int:
     for name, (source, replaces) in meta.items():
         s = stats[name]
         b, by = bound(s["bytes"], s["ops"])
-        kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": s["err"], "ms": s["ms"],
-                        "plain_ms": s["plain_ms"], "bound_ms": b,
-                        "bound_by": by,
-                        "library_ms": s.get("library_ms")})
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": launches[name],
+                 "max_abs_err": s["err"], "ms": s["ms"]}
+        if "device_ms" in s:  # K1f, K1b: the kernels alone
+            entry["device_ms"] = s["device_ms"]
+        kernels.append(entry | {"plain_ms": s["plain_ms"], "bound_ms": b,
+                                "bound_by": by,
+                                "library_ms": s.get("library_ms")})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -1030,4 +1267,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -36,9 +36,10 @@ _F = ctypes.POINTER(ctypes.c_float)
 # argument types of each library's one entry point
 SIGNATURES = {
     "fused_pool": ("srl_relu_max_pool_fwd",
-                   [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+                   [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     "fused_pool_bwd": ("srl_relu_max_pool_bwd",
-                       [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+                       [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                        _P]),
     "gather_norm": ("srl_gather_normalize",
                     [_P, _P, _P, _P, _L, _L, _L, _I, _F, _F, _P]),
     "knn_topk": ("srl_knn_topk",

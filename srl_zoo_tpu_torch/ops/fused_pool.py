@@ -20,9 +20,18 @@ backward reads it; inference writes no plane. The gradient is XLA's
 select-and-scatter gradient of ``max_pool(relu(x))``: ties go to the first
 maximum in raster order, and nothing flows where the window maximum is
 <= 0.
+
+Each kernel has a vector path, taken when C times the element size is a
+multiple of 16 bytes and the tensors start 16-byte aligned (the main
+path's C = 64 in channels_last memory), and a scalar path in the same
+source for any other shape. Each wrapper counts its launches
+(``launches``) and, beside them, its vector-path launches
+(``vector_launches``).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -110,33 +119,77 @@ def _check_cuda(fn: str, t: torch.Tensor, what: str) -> None:
                          ".permute(0, 2, 3, 1))")
 
 
-def _check_pads(fn: str, h: int, w: int, pads) -> tuple[int, int]:
+def _key(padding):
+    """``padding`` as a hashable key of :func:`_geometry`."""
+    if padding == "SAME":
+        return padding
+    (ph, pw) = padding
+    return (int(ph[0]), int(ph[1])), (int(pw[0]), int(pw[1]))
+
+
+@functools.lru_cache(maxsize=256)
+def _geometry(h: int, w: int, padding):
+    """(pads, oh, ow) of an h x w pool for the kernels, computed once per
+    shape; raises on pads outside [0, 2] or an empty output."""
+    pads = _resolve_pads(h, w, padding)
     oh, ow = _out_size(h, pads[0]), _out_size(w, pads[1])
     if oh < 1 or ow < 1 or min(pads[0] + pads[1]) < 0 or \
             max(pads[0] + pads[1]) > 2:
-        raise ValueError(f"{fn}: unsupported pads {pads} for {h}x{w}")
-    return oh, ow
+        raise ValueError(f"relu_max_pool: unsupported pads {pads} for "
+                         f"{h}x{w}")
+    return pads, oh, ow
 
 
-def _fwd_kernel(x: torch.Tensor, pads, with_index: bool):
+_entries: dict = {}  # ctypes entry points, bound once after the build
+
+
+def _entry(name: str):
+    """The ctypes entry point of ``csrc/<name>.cu``, built on first use;
+    later calls skip the build module's lock."""
+    fn = _entries.get(name)
+    if fn is None:
+        fn = _entries[name] = _build.entry(name)
+    return fn
+
+
+def _launch(fn, t: torch.Tensor, *args) -> int:
+    """Call a kernel entry point on ``t``'s device and its current stream;
+    only a tensor on another device than the current one pays for
+    switching devices."""
+    if t.get_device() == torch.cuda.current_device():
+        return fn(*args, torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(t.device):
+        return fn(*args, torch.cuda.current_stream().cuda_stream)
+
+
+def _vector_ok(t: torch.Tensor, c: int, extra_ptr: int = 0) -> bool:
+    """Whether the kernels' vector path reads ``t``: whole 16-byte vectors
+    of channels from a 16-byte aligned start (a slice at an odd storage
+    offset takes the scalar path)."""
+    es = t.element_size()
+    return (c * es) % 16 == 0 and t.data_ptr() % 16 == 0 and \
+        extra_ptr % (16 // es) == 0
+
+
+def _fwd_kernel(x: torch.Tensor, padding, with_index: bool):
     """Launch the forward kernel on a CUDA tensor: (y, idx or None)."""
     _check_cuda("relu_max_pool", x, "x")
     b, h, w, c = x.shape
-    oh, ow = _check_pads("relu_max_pool", h, w, pads)
+    pads, oh, ow = _geometry(h, w, _key(padding))
     y = torch.empty((b, oh, ow, c), dtype=x.dtype, device=x.device)
     idx = torch.empty((b, oh, ow, c), dtype=torch.int8, device=x.device) \
         if with_index else None
     if y.numel() == 0:
         return y, idx
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = _build.entry("fused_pool")(
-            x.data_ptr(), y.data_ptr(),
-            idx.data_ptr() if idx is not None else None,
-            _DTYPES[x.dtype], b, h, w, c, oh, ow, pads[0][0], pads[1][0],
-            stream)
+    vector = _vector_ok(x, c)
+    code = _launch(_entry("fused_pool"), x,
+                   x.data_ptr(), y.data_ptr(),
+                   idx.data_ptr() if idx is not None else None,
+                   _DTYPES[x.dtype], b, h, w, c, oh, ow, pads[0][0],
+                   pads[1][0], int(vector))
     _build.check(code, "relu_max_pool")
     relu_max_pool.launches += 1
+    relu_max_pool.vector_launches += vector
     return y, idx
 
 
@@ -154,9 +207,8 @@ def relu_max_pool_bwd(g: torch.Tensor, idx: torch.Tensor, x_shape,
         return relu_max_pool_bwd_plain(g, idx, x_shape, padding)
     _check_cuda("relu_max_pool_bwd", g, "g")
     b, h, w, c = (int(s) for s in x_shape)
-    pads = _resolve_pads(h, w, padding)
-    oh, ow = _check_pads("relu_max_pool_bwd", h, w, pads)
-    if tuple(g.shape) != (b, oh, ow, c) or tuple(idx.shape) != (b, oh, ow, c) \
+    pads, oh, ow = _geometry(h, w, _key(padding))
+    if g.shape != (b, oh, ow, c) or idx.shape != (b, oh, ow, c) \
             or idx.dtype != torch.int8 or not idx.is_contiguous():
         raise ValueError(f"relu_max_pool_bwd: expected g and a contiguous "
                          f"int8 idx of shape {(b, oh, ow, c)}, got "
@@ -165,30 +217,27 @@ def relu_max_pool_bwd(g: torch.Tensor, idx: torch.Tensor, x_shape,
     dx = torch.empty((b, h, w, c), dtype=g.dtype, device=g.device)
     if dx.numel() == 0:
         return dx
-    with torch.cuda.device(g.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = _build.entry("fused_pool_bwd")(
-            g.data_ptr(), idx.data_ptr(), dx.data_ptr(), _DTYPES[g.dtype],
-            b, h, w, c, oh, ow, pads[0][0], pads[1][0], stream)
+    vector = _vector_ok(g, c, idx.data_ptr())
+    code = _launch(_entry("fused_pool_bwd"), g,
+                   g.data_ptr(), idx.data_ptr(), dx.data_ptr(),
+                   _DTYPES[g.dtype], b, h, w, c, oh, ow, pads[0][0],
+                   pads[1][0], int(vector))
     _build.check(code, "relu_max_pool_bwd")
     relu_max_pool_bwd.launches += 1
+    relu_max_pool_bwd.vector_launches += vector
     return dx
 
 
 class _ReluMaxPool(torch.autograd.Function):
-    """relu + pool with the argmax-plane backward. With ``write_index`` the
-    forward returns ``(y, idx)`` and keeps idx for the backward; without,
-    it returns y, writes no plane and has no backward to run."""
+    """relu + pool with the argmax-plane backward: the forward returns
+    ``(y, idx)`` and keeps idx for the backward."""
 
     @staticmethod
-    def forward(ctx, x, pads, write_index):
+    def forward(ctx, x, pads):
         if x.device.type == "cpu":
-            out = relu_max_pool_plain(x, pads, write_index)
-            y, idx = out if write_index else (out, None)
+            y, idx = relu_max_pool_plain(x, pads, True)
         else:
-            y, idx = _fwd_kernel(x, pads, write_index)
-        if not write_index:
-            return y
+            y, idx = _fwd_kernel(x, pads, True)
         ctx.save_for_backward(idx)
         ctx.pads = pads
         ctx.x_shape = tuple(x.shape)
@@ -201,7 +250,7 @@ class _ReluMaxPool(torch.autograd.Function):
         # g arrives as the NHWC view of a channels_last tensor, or as any
         # other layout: the kernel reads contiguous NHWC
         return relu_max_pool_bwd(g.contiguous(), idx, ctx.x_shape,
-                                 ctx.pads), None, None
+                                 ctx.pads), None
 
 
 def relu_max_pool(x: torch.Tensor, padding="SAME", with_index: bool = False):
@@ -210,16 +259,21 @@ def relu_max_pool(x: torch.Tensor, padding="SAME", with_index: bool = False):
     ``padding`` is "SAME" or ``((top, bottom), (left, right))``. Returns y,
     or ``(y, idx)`` with ``with_index``; y is differentiable in x. A CUDA
     tensor launches the kernels; a CPU tensor takes the plain versions; any
-    other device raises."""
-    if x.device.type not in ("cpu", "cuda"):
+    other device raises. Without a gradient to take and without the index,
+    the kernel is called directly: no autograd node, no argmax plane."""
+    kind = x.device.type
+    if kind not in ("cpu", "cuda"):
         raise ValueError(f"relu_max_pool: no kernel for device {x.device}")
+    if not with_index and not (x.requires_grad and torch.is_grad_enabled()):
+        if kind == "cpu":
+            return relu_max_pool_plain(x, padding)
+        return _fwd_kernel(x, padding, False)[0]
     pads = _resolve_pads(x.shape[1], x.shape[2], padding)
-    needs_grad = torch.is_grad_enabled() and x.requires_grad
-    out = _ReluMaxPool.apply(x, pads, with_index or needs_grad)
-    if with_index:
-        return out
-    return out[0] if needs_grad else out
+    y, idx = _ReluMaxPool.apply(x, pads)
+    return (y, idx) if with_index else y
 
 
 relu_max_pool.launches = 0
+relu_max_pool.vector_launches = 0
 relu_max_pool_bwd.launches = 0
+relu_max_pool_bwd.vector_launches = 0

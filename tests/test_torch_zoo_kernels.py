@@ -68,6 +68,15 @@ def test_relu_max_pool_plain_matches_pallas_bf16(shape, padding):
     ((2, 28, 28, 16), "SAME"),
     ((2, 7, 7, 64), "SAME"),
     ((2, 7, 7, 64), ((1, 1), (1, 1))),
+    # the shapes that reach the kernels' scalar path and tile edges:
+    # C * 4 bytes not a multiple of 16 (3, 66) or 3 vectors (12), B = 1,
+    # a ragged 9 x 13 image, a 1 x 1 image, pads of 0, 2 and 1 per side
+    ((1, 9, 13, 3), ((0, 0), (0, 0))),
+    ((1, 9, 13, 12), ((2, 0), (0, 2))),
+    ((1, 9, 13, 66), ((1, 1), (1, 1))),
+    ((1, 1, 1, 12), ((1, 1), (1, 1))),
+    ((1, 1, 1, 3), "SAME"),
+    ((1, 1, 1, 66), ((2, 0), (0, 2))),
 ])
 def test_relu_max_pool_plain_matches_reference_f32(shape, padding):
     x = _pool_input(shape, 1)

@@ -98,6 +98,13 @@ def _check_grads(model, want_sd, prefix=""):
     ((2, 16, 16, 8), ((1, 1), (1, 1))),
     ((2, 7, 7, 8), "SAME"),
     ((3, 15, 9, 4), "SAME"),
+    # the kernels' scalar path and tile edges: C in {3, 12, 66}, B = 1,
+    # 9 x 13 and 1 x 1 images, pads of 0, 2 and 1 per side
+    ((1, 9, 13, 3), ((0, 0), (0, 0))),
+    ((1, 9, 13, 12), ((2, 0), (0, 2))),
+    ((1, 9, 13, 66), ((1, 1), (1, 1))),
+    ((1, 1, 1, 12), ((1, 1), (1, 1))),
+    ((1, 1, 1, 66), ((2, 0), (0, 2))),
 ])
 def test_relu_max_pool_gradient_equals_xla_exactly(shape, padding):
     rng = np.random.RandomState(11)
@@ -159,6 +166,30 @@ def test_relu_max_pool_writes_the_plane_only_for_a_gradient():
         relu_max_pool_bwd(torch.empty(1, 4, 4, 4, device="meta"),
                           torch.empty(1, 4, 4, 4, dtype=torch.int8,
                                       device="meta"), (1, 8, 8, 4))
+
+
+def test_relu_max_pool_inference_takes_no_autograd_node():
+    """With no gradient to take and no index asked for, the wrapper calls
+    the kernel (here its plain version) directly: y has no autograd node
+    and equals the differentiable path's y; with ``requires_grad`` the
+    backward still routes g through the argmax plane."""
+    rng = np.random.RandomState(13)
+    x = torch.from_numpy(rng.randint(-2, 3, (2, 9, 13, 8)).astype(np.float32))
+    y = relu_max_pool(x)
+    assert y.grad_fn is None and not y.requires_grad
+    xg = x.clone().requires_grad_()
+    with torch.no_grad():
+        y_nograd = relu_max_pool(xg)
+    assert y_nograd.grad_fn is None
+    y_grad = relu_max_pool(xg)
+    assert y_grad.grad_fn is not None
+    np.testing.assert_array_equal(y_nograd.numpy(), y.numpy())
+    np.testing.assert_array_equal(y_grad.detach().numpy(), y.numpy())
+    g = torch.from_numpy(rng.randint(-8, 9, y.shape).astype(np.float32))
+    y_grad.backward(g)
+    _, idx = relu_max_pool_plain(x, with_index=True)
+    np.testing.assert_array_equal(
+        xg.grad.numpy(), relu_max_pool_bwd_plain(g, idx, x.shape).numpy())
 
 
 # ---------------------------------------------------------------------------
