@@ -26,16 +26,25 @@ prints its wall time:
    66 and 64 in f32, 12 and 64 in bf16; 9x13 and 1x1 images, B 1, pads
    of 0, 2 and 1 per side; slices at an odd storage offset), each on the
    path its shape selects. Gather + normalize (K2) of 256 random rows of
-   a 20,000-frame 224x224x3 store, both modes, and of 32 rows (the
-   training batch), 1e-6, device and wrapper time; distance +
-   top-k (K3) at Q=4,096, N=20,000, D=200, k=6, distances within 1e-4
-   relative and indices equal except at ties within that tolerance
-   (counted); pairwise distances (K4) at the same Q, N, D, each element
-   within 1e-5 of |x|^2 + |y|^2 against the plain version (and at four
-   ragged shapes) and against float64 on a 512 x 512 corner, timed
-   beside ``torch.cdist`` (the
-   library call), and the ``full`` route's top-6 indices against K3's,
-   equal except at counted near ties.
+   a 20,000-frame 224x224x3 store from a host index, both modes, and of
+   32 rows (the training batch), within 1e-6 on the vector path, device
+   and wrapper time; then at edge shapes (9x13 frames of C 1, 3, 4, 6 and
+   8, 16x16x1, one frame, B 1 and 7, store slices at offsets 1 and 4),
+   each on the path it selects, and IndexError for -1 and N from host
+   and CUDA indices. Under ``torch.cuda.set_sync_debug_mode("error")``,
+   K2 at 256 and 32 rows from a host index and the train step's input
+   path (``_inputs``) of configs 1 and 3 must not synchronise. Distance +
+   top-k (K3) at Q=4,096, N=20,000, D=200, k=6 and at ten ragged shapes
+   (Q 1 and 130, N = k and 1,111, D 1 to 600, k 1 to 64), distances
+   within 1e-4 relative and indices equal except at ties within that
+   tolerance (counted), timed as all of a call's kernels together;
+   4,096 queries that are references must find themselves first at a
+   distance of exactly 0; pairwise distances (K4) at the same Q, N, D,
+   each element within 1e-5 of |x|^2 + |y|^2 against the plain version
+   (and at four ragged shapes) and against float64 on a 512 x 512
+   corner, timed beside ``torch.cdist`` (the library call), and the
+   ``full`` route's top-6 indices against K3's, equal except at counted
+   near ties.
 3. The inference path at the full width of config 1 (custom_cnn,
    224x224x3, state_dim 200), from a seeded random model saved as a run
    folder: the HTTP server (coalescing 5 ms, max batch 32) answers two
@@ -45,8 +54,8 @@ prints its wall time:
    sampled queries with the fused kernel, and the ``full`` route (K4 and a
    stable sort) finds the same queries' 6 nearest. Kernel launch counts
    are zeroed just before and read just after; K1, K2, K3 and K4 must have
-   run, and every pool launch must have taken the vector path. Then the
-   replies are held against a direct encode (1e-5), 64
+   run, and every pool and gather launch must have taken the vector path.
+   Then the replies are held against a direct encode (1e-5), 64
    exported rows against a direct encode (1e-5), the score against the
    plain top-k's (1e-6), the ``full`` route's indices against the fused
    route's (equal but at counted near ties) and its score against the
@@ -64,8 +73,8 @@ prints its wall time:
    for 3 epochs, configs 2-4 for 2), exports its states and scores GTC;
    KNN-MSE of the exported states is then scored through both neighbour
    routes (K3 and K4). Launch counts are zeroed just before and read just
-   after; K1, K1b, K2, K3 and K4 must have run, the pools on their vector
-   path. The training loss must
+   after; K1, K1b, K2, K3 and K4 must have run, the pools and the gather
+   on their vector path. The training loss must
    fall, the exported states must match a direct encode (1e-5), and the
    two routes' scores must agree (1e-6); train images/s and export
    states/s are printed. Then each pool's input must be channels_last
@@ -73,15 +82,18 @@ prints its wall time:
    profiled (device time by kernel, busy share, layout transposes and the
    operations that launch them).
 5. A ``{"kernels": [...]}`` line (launches summed over all the paths;
-   K1f and K1b with ``device_ms`` beside ``ms``), the nvidia-smi line, and
-   last ``{"ok": true, "device": {...}}``.
+   every kernel with ``device_ms``, the kernel alone, beside ``ms``, the
+   wrapper), the nvidia-smi line, and last ``{"ok": true, "device":
+   {...}}``.
 
 With ``--pools-of CHECKOUT`` it imports the port package of another
 checkout (e.g. a ``git archive`` of the parent commit), builds that
-checkout's kernels into its own ``build/``, runs phase 2's K1f and K1b
-main-shape checks and timings alone on them, and prints a ``{"tree": ...,
-"pool_times": [...]}`` line and the card, so that the device times of two
-trees' pools can be compared in one run on one card.
+checkout's kernels into its own ``build/``, runs phase 2's main-shape
+checks and timings of K1f, K1b, K2 and K3 alone on them (K2 from a CUDA
+index where that tree's wrapper takes no host index), and prints a
+``{"tree": ..., "pool_times": [...], "kernel_times": [...]}`` line and the
+card, so that the device times of two trees' kernels can be compared in
+one run on one card.
 
 Bounds use the H100 SXM data-sheet rates at 700 W: 3.35 TB/s of device
 memory and 67 TFLOP/s of float32 outside the tensor cores. No single
@@ -180,8 +192,9 @@ def card_line() -> str:
 def device_ms(fn, kernel: str, iters: int = 10) -> float:
     """Device time of one call of ``fn``: torch.profiler's (CUPTI's) device
     time of the kernels whose name holds ``kernel`` over ``iters`` calls
-    after a warm-up call, over the calls. Fails unless each call launched
-    one such kernel."""
+    after a warm-up call, over the calls; a call that launches several
+    such kernels (K3's passes) is the sum of them. Fails unless every call
+    launched the same number of them, and at least one."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -195,15 +208,15 @@ def device_ms(fn, kernel: str, iters: int = 10) -> float:
            if e.device_type == torch.autograd.DeviceType.CUDA
            and kernel in e.key]
     n = sum(e.count for e in evs)
-    if n != iters:
+    if n == 0 or n % iters:
         raise AssertionError(f"{n} launches of a {kernel} kernel in "
                              f"{iters} calls")
     return sum(e.self_device_time_total for e in evs) / iters / 1e3
 
 
 def vector_count(fn):
-    """A pool wrapper's vector-path launches so far (None for a tree whose
-    kernels have no vector path)."""
+    """A wrapper's vector-path launches so far (None for a tree whose
+    kernel counts none)."""
     return getattr(fn, "vector_launches", None)
 
 
@@ -443,43 +456,196 @@ def check_pool_edges(dev, g) -> None:
         f"{n['scalar']} on the scalar path")
 
 
-def check_gather(store, dev, g) -> dict:
-    """K2 against its plain version at the export batch (256 rows) in both
-    modes, and in config 1's mode at the training batch (32 rows); device
-    time (torch.profiler) beside the wrapper's (CUDA events, which include
-    the wrapper's readback of the out-of-range flag). Returns the 256-row
+def check_gather(store, dev, times: list) -> dict:
+    """K2 at its main-path shapes: the export batch (256 rows) in both
+    modes and the training batch (32 rows) in config 1's mode, from a host
+    index where the tree's wrapper takes one (a CUDA index otherwise, as
+    the parent's does): within 1e-6 of the plain version, the vector path
+    taken, and a CUDA index giving the same rows; then the device time
+    (torch.profiler), the wrapper time (CUDA events over WRAPPER_CALLS
+    calls, the host index's check and upload included) and the plain
+    time. Appends one record per shape to ``times``. Returns the 256-row
     "tf" numbers."""
+    import torch
+    from srl_zoo_tpu_torch.evaluation.predict_dataset import BATCH
+    from srl_zoo_tpu_torch.ops import gather_norm
+    from srl_zoo_tpu_torch.ops.gather_norm import (gather_normalize,
+                                                   gather_normalize_plain)
+    host = hasattr(gather_norm, "check_host_index")
+    n = store.shape[0]
+    rng = np.random.default_rng(SEED)
+    res = {}
+    for rows, mode in ((BATCH, "tf"), (BATCH, "image_net"),
+                       (TRAIN_BATCH, "tf")):
+        idx_np = rng.integers(0, n, rows)
+        idx_dev = torch.from_numpy(idx_np).to(dev)
+        idx = idx_np if host else idx_dev
+        out, path = path_of(gather_normalize,
+                            lambda: gather_normalize(store, idx, mode))
+        ref = gather_normalize_plain(store, idx_dev, mode)
+        err = float((out - ref).abs().max())
+        if err > 1e-6:
+            raise AssertionError(f"gather_normalize {mode} B={rows}: max err "
+                                 f"{err}")
+        if path == "scalar":
+            raise AssertionError(f"gather_normalize B={rows} took the scalar "
+                                 "path")
+        if host and not torch.equal(gather_normalize(store, idx_dev, mode),
+                                    out):
+            raise AssertionError("gather_normalize: a CUDA index gives other "
+                                 "rows than the same host index")
+        del ref
+        call = lambda: gather_normalize(store, idx, mode)  # noqa: E731
+        dev_ms = device_ms(call, "gather_norm")
+        ms = time_ms(call, iters=WRAPPER_CALLS)
+        plain = time_ms(lambda: gather_normalize_plain(store, idx_dev, mode))
+        nbytes = out.numel() * 5 + idx_np.size * 8
+        ops = 2 * out.numel()
+        b, by = bound(nbytes, ops)
+        log(f"K2 gather_normalize {mode} B={rows} of N={n}: max err "
+            f"{err:.3g}, {path} path, {'host' if host else 'CUDA'} index; "
+            f"device {dev_ms:.4f} ms, wrapper {ms:.4f} ms (plain "
+            f"{plain:.4f} ms), bound {b:.4f} ms by {by}: "
+            f"{100 * b / dev_ms:.1f}% of the bound in device time")
+        times.append({"kernel": "K2", "shape": [rows, *IMG], "mode": mode,
+                      "device_ms": dev_ms, "ms": ms, "plain_ms": plain,
+                      "bound_ms": b})
+        if rows == BATCH and mode == "tf":  # config 1's mode, export batch
+            res = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain,
+                   "bytes": nbytes, "ops": ops, "err": err}
+    return res
+
+
+def check_gather_edges(store, dev, g) -> None:
+    """K2 within 1e-6 of its plain version off the main path, each call on
+    the path its shape selects (vector where a frame is a whole number of
+    4-byte groups and the store starts 4-byte aligned): 9x13 frames of C
+    1, 3, 4, 6 and 8 (C 3 and 6 in both modes), 16x16x1 frames, a
+    one-frame store, B 1 and 7, and 224x224x3 stores that are slices at
+    storage offsets of 1 and 4 bytes; host indices as numpy and as a CPU
+    tensor. Then an index of -1 or N raises IndexError, from the host
+    before any launch and from a CUDA index through the kernel's flag."""
     import torch
     from srl_zoo_tpu_torch.ops.gather_norm import (gather_normalize,
                                                    gather_normalize_plain)
+    rng = np.random.default_rng(SEED)
+    n_path = {"vector": 0, "scalar": 0}
+    for (n, h, w, c), offset in (((5, 9, 13, 1), 0), ((5, 9, 13, 3), 0),
+                                 ((5, 9, 13, 4), 0), ((5, 9, 13, 6), 0),
+                                 ((5, 9, 13, 8), 0), ((5, 16, 16, 1), 0),
+                                 ((1, 7, 5, 8), 0), ((3,) + IMG, 1),
+                                 ((3,) + IMG, 4)):
+        numel = n * h * w * c
+        flat = torch.randint(0, 256, (numel + offset,), generator=g,
+                             device=dev, dtype=torch.uint8)
+        frames = flat[offset:].view(n, h, w, c)
+        want = "vector" if (h * w * c) % 4 == 0 and offset % 4 == 0 \
+            else "scalar"
+        for b in (1, 7):
+            idx_np = rng.integers(0, n, b)
+            for mode in ("tf", "image_net") if c % 3 == 0 else ("tf",):
+                for idx in (idx_np, torch.from_numpy(idx_np)):
+                    out, path = path_of(
+                        gather_normalize,
+                        lambda: gather_normalize(frames, idx, mode))
+                    ref = gather_normalize_plain(
+                        frames, torch.from_numpy(idx_np).to(dev), mode)
+                    err = float((out - ref).abs().max())
+                    if not err <= 1e-6 or path != want:
+                        raise AssertionError(
+                            f"gather_normalize edge {(n, h, w, c)} offset "
+                            f"{offset} B={b} {mode}: max err {err}, {path} "
+                            f"path, expected {want}")
+                    n_path[want] += 1
+    launches = gather_normalize.launches
+    for bad in (np.array([0, -1]), np.array([store.shape[0]])):
+        try:
+            gather_normalize(store, bad)
+        except IndexError:
+            continue
+        raise AssertionError(f"gather_normalize accepted the host index "
+                             f"{bad.tolist()}")
+    if gather_normalize.launches != launches:
+        raise AssertionError("gather_normalize launched on an out-of-range "
+                             "host index")
+    for bad in ([0, -1], [store.shape[0]]):
+        try:
+            gather_normalize(store, torch.tensor(bad, device=dev))
+        except IndexError:
+            continue
+        raise AssertionError(f"gather_normalize accepted the CUDA index "
+                             f"{bad}")
+    log(f"K2 at {sum(n_path.values())} edge calls (9x13 C 1/3/4/6/8, "
+        f"16x16x1, N 1, B 1 and 7, slices at offsets 1 and 4, numpy and "
+        f"CPU-tensor indices): within 1e-6, {n_path['vector']} on the "
+        f"vector path, {n_path['scalar']} on the scalar path; -1 and N "
+        f"raise IndexError from host (before a launch) and CUDA indices")
+
+
+def step_batch(indices: np.ndarray, rng) -> dict:
+    """A loader-style batch of the store rows ``indices``, with the
+    metadata of every loss (actions, rewards, the priors' pairs)."""
+    from srl_zoo_tpu_torch.data import samplers
+    b = len(indices)
+    actions = rng.randint(0, 4, b).astype(np.int32)
+    rewards = rng.randint(0, 2, b).astype(np.int32)
+    batch = {"indices": indices.astype(np.int32),
+             "valid": np.ones(b, np.float32), "actions": actions,
+             "reward_classes": rewards}
+    (batch["same_action_partners"],
+     batch["same_action_mask"]) = samplers.find_same_action_pairs(actions,
+                                                                  rng)
+    (batch["dissimilar_partners"],
+     batch["dissimilar_mask"]) = samplers.find_dissimilar_pairs(
+        actions, rewards, rng)
+    return batch
+
+
+def check_no_sync(store, dev) -> None:
+    """Under ``torch.cuda.set_sync_debug_mode("error")``, K2 at the export
+    and training batch from a host index, and ``train_step._inputs`` of
+    configs 1 (autoencoder) and 3 (priors: the next frames and the pairs'
+    metadata) at batch 32, complete without a synchronise. The mode is
+    first shown to catch one (a pageable upload); each call runs once
+    before, outside the mode, for its first-use work (the build, the
+    pinned-memory pool)."""
+    import torch
+    from srl_zoo_tpu_torch.evaluation.predict_dataset import BATCH
+    from srl_zoo_tpu_torch.ops.gather_norm import gather_normalize
+    from srl_zoo_tpu_torch.training.state import make_model
+    from srl_zoo_tpu_torch.training.train_step import _inputs
     n = store.shape[0]
-    res = {}
-    for rows, mode in ((256, "tf"), (256, "image_net"), (TRAIN_BATCH, "tf")):
-        idx = torch.randint(0, n, (rows,), generator=g, device=dev)
-        out = gather_normalize(store, idx, mode)
-        ref = gather_normalize_plain(store, idx, mode)
-        err = float((out - ref).abs().max())
-        if err > 1e-6:
-            raise AssertionError(f"gather_normalize {mode}: max err {err}")
-        call = lambda: gather_normalize(store, idx, mode)  # noqa: E731
-        dev_ms = device_ms(call, "gather_norm")
-        ms = time_ms(call)
-        plain = time_ms(lambda: gather_normalize_plain(store, idx, mode))
-        nbytes = out.numel() * 5 + idx.numel() * 8
-        b, by = bound(nbytes, 2 * out.numel())
-        log(f"K2 gather_normalize {mode} B={rows} of N={n}: max err "
-            f"{err:.3g}; device {dev_ms:.4f} ms, wrapper {ms:.4f} ms (plain "
-            f"{plain:.4f} ms), bound {b:.4f} ms by {by}")
-        if rows == 256 and mode == "tf":  # config 1's mode, export batch
-            res = {"ms": ms, "plain_ms": plain, "bytes": nbytes,
-                   "ops": 2 * out.numel(), "err": err}
+    rng = np.random.RandomState(SEED)
+    calls = [(f"K2 B={rows}", lambda rows=rows: gather_normalize(
+        store, rng.randint(0, n, rows))) for rows in (BATCH, TRAIN_BATCH)]
+    for name, tokens, _ in TRAIN_CONFIGS[::2]:  # configs 1 and 3
+        model = make_model(train_config(tokens, TRAIN_BATCH), dev)
+        model.train()
+        batch = step_batch(rng.choice(n, TRAIN_BATCH, replace=False), rng)
+        calls.append((f"_inputs of {name}", lambda m=model, b=batch:
+                       _inputs(m, store, b)))
+    for _, call in calls:
+        call()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
     try:
-        gather_normalize(store, torch.tensor([0, n], device=dev))
-    except IndexError:
-        pass
-    else:
-        raise AssertionError("gather_normalize accepted an index == N")
-    return res
+        try:
+            torch.ones(4).to(dev)
+        except RuntimeError:
+            pass
+        else:
+            raise AssertionError("the sync debug mode let a pageable upload "
+                                 "through")
+        for name, call in calls:
+            try:
+                call()
+            except RuntimeError as e:
+                raise AssertionError(f"{name} synchronised: {e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log(f"no synchronise under set_sync_debug_mode('error') (which catches "
+        f"a pageable upload): {', '.join(name for name, _ in calls)}")
 
 
 def near_tie_mismatches(q, refs, ki, pi, rtol: float) -> int:
@@ -497,31 +663,87 @@ def near_tie_mismatches(q, refs, ki, pi, rtol: float) -> int:
     return len(bad)
 
 
-def check_knn(dev, g) -> dict:
+def knn_against_plain(q, refs, k: int):
+    """K3 against its plain version: the largest relative distance error
+    (raises above 1e-4) and the index mismatches, each a counted near
+    tie."""
+    import torch
+    from srl_zoo_tpu_torch.ops.knn_topk import (knn_topk_plain,
+                                                knn_topk_with_dist)
+    kd, ki = knn_topk_with_dist(q, refs, k)
+    pd, pi = knn_topk_plain(q, refs, k)
+    torch.cuda.synchronize()
+    rel = float(((kd - pd).abs() / pd.abs().clamp_min(1e-30)).max())
+    if not rel <= 1e-4:
+        raise AssertionError(f"knn_topk {tuple(q.shape)} of "
+                             f"{tuple(refs.shape)}, k={k}: distances max rel "
+                             f"err {rel}")
+    return rel, near_tie_mismatches(q, refs, ki, pi, 1e-4), \
+        float((kd - pd).abs().max())
+
+
+def check_knn(dev, g, times: list) -> dict:
+    """K3 at its main-path shape (Q 4,096, N 20,000, D 200, k 6) against
+    its plain version; its device time (every kernel a call launches,
+    torch.profiler), wrapper time and plain time. Appends one record to
+    ``times``."""
     import torch
     from srl_zoo_tpu_torch.ops.knn_topk import (knn_topk_plain,
                                                 knn_topk_with_dist)
     nq, n, d, k = KNN_QUERIES, N_FRAMES, STATE_DIM, 6
     q = torch.randn((nq, d), generator=g, device=dev)
     refs = torch.randn((n, d), generator=g, device=dev)
-    kd, ki = knn_topk_with_dist(q, refs, k)
-    pd, pi = knn_topk_plain(q, refs, k)
-    torch.cuda.synchronize()
-    rel = float(((kd - pd).abs() / pd.abs().clamp_min(1e-30)).max())
-    if rel > 1e-4:
-        raise AssertionError(f"knn_topk distances: max rel err {rel}")
-    ties = near_tie_mismatches(q, refs, ki, pi, 1e-4)
-    ms = time_ms(lambda: knn_topk_with_dist(q, refs, k))
+    rel, ties, err = knn_against_plain(q, refs, k)
+    call = lambda: knn_topk_with_dist(q, refs, k)  # noqa: E731
+    dev_ms = device_ms(call, "knn_")
+    ms = time_ms(call)
     plain = time_ms(lambda: knn_topk_plain(q, refs, k), iters=5)
     nbytes = 4 * (nq + n) * d + nq * k * 12
     ops = 2 * nq * n * d + 2 * (nq + n) * d
     b, by = bound(nbytes, ops)
     log(f"K3 knn_topk Q={nq} N={n} D={d} k={k}: max rel err {rel:.3g}, "
-        f"{ties} index mismatches at near-ties; {ms:.4f} ms (plain "
-        f"{plain:.4f} ms, bound {b:.4f} ms by {by}, "
-        f"{ops / ms / 1e9:.1f} TFLOP/s)")
-    return {"ms": ms, "plain_ms": plain, "bytes": nbytes, "ops": ops,
-            "err": float((kd - pd).abs().max())}
+        f"{ties} index mismatches at near-ties; device {dev_ms:.4f} ms "
+        f"({ops / dev_ms / 1e9:.1f} TFLOP/s), wrapper {ms:.4f} ms (plain "
+        f"{plain:.4f} ms), bound {b:.4f} ms by {by}: "
+        f"{100 * b / dev_ms:.1f}% of the bound in device time")
+    times.append({"kernel": "K3", "shape": [nq, n, d, k], "device_ms": dev_ms,
+                  "ms": ms, "plain_ms": plain, "bound_ms": b})
+    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain,
+            "bytes": nbytes, "ops": ops, "err": err}
+
+
+# (Q, N, D, k): Q 1 and 130; N = k and 1,111; D 1, 5, 37 and 200 (and 600,
+# past the resident query tile); k 1, 6, 33 and 64
+KNN_RAGGED = ((1, 1111, 37, 6), (130, 1111, 1, 1), (130, 1111, 5, 33),
+              (130, 64, 37, 64), (130, 6, 200, 6), (1, 1111, 200, 64),
+              (130, 1111, 200, 33), (130, 33, 5, 33), (130, 1, 37, 1),
+              (130, 1111, 600, 6))
+
+
+def check_knn_ragged(dev, g) -> None:
+    """K3 against its plain version at KNN_RAGGED: distances within 1e-4
+    relative, indices equal but at counted near ties. Then queries that
+    are references (as KNN-MSE's are) must find themselves first at a
+    distance of exactly 0: the norms are summed in the dot products'
+    order, so a near-duplicate state cannot win by rounding."""
+    import torch
+    from srl_zoo_tpu_torch.ops.knn_topk import knn_topk_with_dist
+    worst, ties = 0.0, 0
+    for nq, n, d, k in KNN_RAGGED:
+        q = torch.randn((nq, d), generator=g, device=dev)
+        refs = torch.randn((n, d), generator=g, device=dev)
+        rel, t, _ = knn_against_plain(q, refs, k)
+        worst, ties = max(worst, rel), ties + t
+    refs = torch.randn((N_FRAMES, STATE_DIM), generator=g, device=dev)
+    kd, ki = knn_topk_with_dist(refs[:KNN_QUERIES], refs, 6)
+    if not (bool((kd[:, 0] == 0).all()) and torch.equal(
+            ki[:, 0], torch.arange(KNN_QUERIES, device=dev))):
+        raise AssertionError("knn_topk: a query that is a reference is not "
+                             "its own nearest at distance 0")
+    log(f"K3 at {len(KNN_RAGGED)} ragged shapes (Q 1/130, N k/1111, D "
+        f"1/5/37/200/600, k 1/6/33/64): max rel err {worst:.3g}, {ties} "
+        f"index mismatches at near-ties; {KNN_QUERIES} queries that are "
+        f"references find themselves first at distance 0")
 
 
 def within_norm_tol(got, want, x, y, rtol: float = 1e-5) -> float:
@@ -568,7 +790,9 @@ def check_pairwise(dev, g) -> dict:
         edge = max(edge, within_norm_tol(pairwise_sqdist(ex, ey),
                                          pairwise_sqdist_plain(ex, ey),
                                          ex, ey))
-    ms = time_ms(lambda: pairwise_sqdist(x, y))
+    call = lambda: pairwise_sqdist(x, y)  # noqa: E731
+    dev_ms = device_ms(call, "pairwise_kernel")
+    ms = time_ms(call)
     plain = time_ms(lambda: pairwise_sqdist_plain(x, y))
     lib = time_ms(lambda: torch.cdist(
         x, y, compute_mode="use_mm_for_euclid_dist"))
@@ -577,9 +801,10 @@ def check_pairwise(dev, g) -> dict:
     b, by = bound(nbytes, ops)
     log(f"K4 pairwise_sqdist Q={nq} N={n} D={d}: max err {rel:.3g} of "
         f"|x|^2+|y|^2 vs plain, {rel64:.3g} vs float64 on a {c}x{c} corner, "
-        f"{edge:.3g} at four ragged shapes; "
-        f"{ms:.4f} ms (plain {plain:.4f} ms, torch.cdist {lib:.4f} ms, "
-        f"bound {b:.4f} ms by {by}, {ops / ms / 1e9:.1f} TFLOP/s)")
+        f"{edge:.3g} at four ragged shapes; device {dev_ms:.4f} ms "
+        f"({ops / dev_ms / 1e9:.1f} TFLOP/s), wrapper {ms:.4f} ms (plain "
+        f"{plain:.4f} ms, torch.cdist {lib:.4f} ms), bound {b:.4f} ms by "
+        f"{by}: {100 * b / dev_ms:.1f}% of the bound in device time")
     k = 6
     fd, fi = knn_topk_with_dist(x, y, k, impl="full")
     kd, ki = knn_topk_with_dist(x, y, k)
@@ -589,8 +814,8 @@ def check_pairwise(dev, g) -> dict:
                       iters=5)
     log(f"full route (K4 + stable sort) top-{k}: {ties} index mismatches "
         f"against K3 at near-ties; {full_ms:.4f} ms")
-    return {"ms": ms, "plain_ms": plain, "library_ms": lib, "bytes": nbytes,
-            "ops": ops, "err": err}
+    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain,
+            "library_ms": lib, "bytes": nbytes, "ops": ops, "err": err}
 
 
 # ---------------------------------------------------------------------------
@@ -688,15 +913,15 @@ def zero_counts(counters) -> None:
 
 
 def read_counts(counters, path: str) -> dict:
-    """Launch counts by kernel; fails unless every pool launch of the path
-    took the vector path."""
+    """Launch counts by kernel; fails unless every launch of the path of a
+    kernel with a vector path (K1f, K1b, K2) took it."""
     launches = {k: c.launches for k, c in counters.items()}
     vector = {k: c.vector_launches for k, c in counters.items()
               if hasattr(c, "vector_launches")}
-    log(f"{path} launches: {launches}; pools on the vector path: {vector}")
+    log(f"{path} launches: {launches}; on the vector path: {vector}")
     if any(vector[k] != launches[k] for k in vector):
-        raise AssertionError(f"a pool launch of the {path} took the scalar "
-                             f"path: {vector} of {launches}")
+        raise AssertionError(f"a launch of the {path} took the scalar path: "
+                             f"{vector} of {launches}")
     return launches
 
 
@@ -891,7 +1116,6 @@ def check_train_step_on_cpu(dev, name: str, tokens) -> None:
     import copy
 
     import torch
-    from srl_zoo_tpu_torch.data import samplers
     from srl_zoo_tpu_torch.training.state import make_model
     from srl_zoo_tpu_torch.training.train_step import _inputs, _loss
     cfg = train_config(tokens, CPU_STEP_BATCH)
@@ -899,17 +1123,7 @@ def check_train_step_on_cpu(dev, name: str, tokens) -> None:
     rng = np.random.RandomState(SEED)
     frames = torch.from_numpy(rng.randint(0, 256, (b + 1,) + IMG).astype(
         np.uint8))  # row b is the last row's next frame
-    actions = rng.randint(0, 4, b).astype(np.int32)
-    rewards = rng.randint(0, 2, b).astype(np.int32)
-    batch = {"indices": np.arange(b, dtype=np.int32),
-             "valid": np.ones(b, np.float32), "actions": actions,
-             "reward_classes": rewards}
-    (batch["same_action_partners"],
-     batch["same_action_mask"]) = samplers.find_same_action_pairs(actions,
-                                                                  rng)
-    (batch["dissimilar_partners"],
-     batch["dissimilar_mask"]) = samplers.find_dissimilar_pairs(
-        actions, rewards, rng)
+    batch = step_batch(np.arange(b), rng)
     eps = torch.randn((2, b, STATE_DIM),
                       generator=torch.Generator().manual_seed(SEED))
     cpu = make_model(cfg, torch.device("cpu"))
@@ -1112,10 +1326,12 @@ def run_training(data_folder: str, run_dir: str, dev, counters, name: str,
     return launches
 
 
-def pools_only(card: str, tree: str) -> int:
-    """Phase 2's pool checks and timings alone, on the port package of
-    ``tree`` (another checkout, for a parent-against-change comparison on
-    one card), then one ``{"pool_times": [...]}`` line and the card."""
+def kernels_only(card: str, tree: str) -> int:
+    """Phase 2's main-shape checks and timings of the pools (K1f, K1b), the
+    gather (K2) and the top-k (K3) alone, on the port package of ``tree``
+    (another checkout, for a parent-against-change comparison on one
+    card), then one ``{"tree": ..., "pool_times": [...], "kernel_times":
+    [...]}`` line and the card."""
     import torch
     from srl_zoo_tpu_torch.utils.device import (resolve_device,
                                                 use_strict_float32)
@@ -1127,7 +1343,16 @@ def pools_only(card: str, tree: str) -> int:
     check_pool(dev, g, times)
     check_pool_bwd(dev, g, times)
     log(f"pools of {tree} in {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"tree": tree, "pool_times": times}))
+    t0 = time.perf_counter()
+    store = torch.randint(0, 256, (N_FRAMES,) + IMG, generator=g, device=dev,
+                          dtype=torch.uint8)
+    kernel_times = []
+    check_gather(store, dev, kernel_times)
+    del store
+    check_knn(dev, g, kernel_times)
+    log(f"K2 and K3 of {tree} in {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"tree": tree, "pool_times": times,
+                      "kernel_times": kernel_times}))
     print(card)
     return 0
 
@@ -1165,7 +1390,7 @@ def main(argv) -> int:
         _build.build_all()
         log(f"kernels built in {time.perf_counter() - t0:.1f} s")
         if tree is not None:
-            return pools_only(card, tree)
+            return kernels_only(card, tree)
 
         from srl_zoo_tpu_torch.checkpoint import save_srl_model
         from srl_zoo_tpu_torch.config import SRLConfig
@@ -1195,9 +1420,12 @@ def main(argv) -> int:
         stats = {"relu_max_pool": check_pool(dev, g, times)["export"],
                  "relu_max_pool_bwd": check_pool_bwd(dev, g, times)}
         check_pool_edges(dev, g)
-        stats |= {"gather_normalize": check_gather(store, dev, g),
-                  "knn_topk": check_knn(dev, g),
-                  "pairwise_sqdist": check_pairwise(dev, g)}
+        stats["gather_normalize"] = check_gather(store, dev, times)
+        check_gather_edges(store, dev, g)
+        check_no_sync(store, dev)
+        stats["knn_topk"] = check_knn(dev, g, times)
+        check_knn_ragged(dev, g)
+        stats["pairwise_sqdist"] = check_pairwise(dev, g)
         log(f"phase 2 (kernels) in {time.perf_counter() - t0:.1f} s")
 
         t0 = time.perf_counter()
@@ -1253,9 +1481,8 @@ def main(argv) -> int:
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": launches[name],
                  "max_abs_err": s["err"], "ms": s["ms"]}
-        if "device_ms" in s:  # K1f, K1b: the kernels alone
-            entry["device_ms"] = s["device_ms"]
-        kernels.append(entry | {"plain_ms": s["plain_ms"], "bound_ms": b,
+        kernels.append(entry | {"device_ms": s["device_ms"],
+                                "plain_ms": s["plain_ms"], "bound_ms": b,
                                 "bound_by": by,
                                 "library_ms": s.get("library_ms")})
     print(json.dumps({"kernels": kernels}))

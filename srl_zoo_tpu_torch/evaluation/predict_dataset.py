@@ -35,16 +35,18 @@ def predict_states(encoder: StateEncoder, frames: torch.Tensor,
                          f"{encoder.device}")
     if indices is None:
         indices = np.arange(frames.shape[0])
-    idx = torch.from_numpy(np.asarray(indices, np.int64)).to(encoder.device)
+    # host index slices and states kept on the device until the end: the
+    # batches queue without a synchronise between them
+    idx = np.asarray(indices, np.int64)
     out = []
     with torch.inference_mode():
         for start in range(0, len(idx), BATCH):
             x = gather_normalize(frames, idx[start:start + BATCH],
                                  encoder.cfg.normalize_mode)
-            out.append(encoder.model.encode(x).cpu())
+            out.append(encoder.model.encode(x))
     if not out:
         return np.zeros((0, encoder.cfg.state_dim), np.float32)
-    return torch.cat(out).numpy()
+    return torch.cat(out).cpu().numpy()
 
 
 def main(argv=None) -> str:

@@ -62,7 +62,7 @@ class StateEncoder:
                 chunk = torch.from_numpy(np.require(
                     obs[start:start + self.max_batch], requirements="CW")
                 ).to(self.device)
-                ident = torch.arange(len(chunk), device=self.device)
+                ident = np.arange(len(chunk))
                 x = gather_normalize(chunk, ident, self.cfg.normalize_mode)
                 out.append(self.model.encode(x).cpu().numpy())
         states = np.concatenate(out).astype(np.float32, copy=False)

@@ -15,12 +15,15 @@ Every C entry point returns ``cudaGetLastError()`` after its launch;
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "srl_zoo_tpu_torch"
@@ -33,18 +36,20 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.POINTER(ctypes.c_float)
-# argument types of each library's one entry point
+# the entry points of each library and their argument types; the first is
+# the library's kernel launch
 SIGNATURES = {
-    "fused_pool": ("srl_relu_max_pool_fwd",
-                   [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
-    "fused_pool_bwd": ("srl_relu_max_pool_bwd",
+    "fused_pool": {"srl_relu_max_pool_fwd":
+                   [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]},
+    "fused_pool_bwd": {"srl_relu_max_pool_bwd":
                        [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                        _P]),
-    "gather_norm": ("srl_gather_normalize",
-                    [_P, _P, _P, _P, _L, _L, _L, _I, _F, _F, _P]),
-    "knn_topk": ("srl_knn_topk",
-                 [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    "pairwise": ("srl_pairwise_sqdist", [_P, _P, _P, _I, _I, _I, _P]),
+                        _P]},
+    "gather_norm": {"srl_gather_normalize":
+                    [_P, _P, _P, _P, _L, _L, _L, _I, _F, _F, _I, _I, _P]},
+    "knn_topk": {"srl_knn_topk":
+                 [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+                 "srl_knn_blocks_per_sm": [_I, _I]},
+    "pairwise": {"srl_pairwise_sqdist": [_P, _P, _P, _I, _I, _I, _P]},
 }
 
 _lock = threading.Lock()
@@ -104,17 +109,40 @@ def build_all() -> dict:
     return targets
 
 
-def entry(name: str):
-    """The ctypes function of ``csrc/<name>.cu``, building on first use."""
+def entry(name: str, fn_name: str | None = None):
+    """The ctypes function ``fn_name`` (default: the kernel launch) of
+    ``csrc/<name>.cu``, building every library on first use; later calls
+    skip the lock."""
+    key = (name, fn_name or next(iter(SIGNATURES[name])))
+    fn = _entries.get(key)
+    if fn is not None:
+        return fn
     with _lock:
         if not _entries:
             for lib_name, path in build_all().items():
-                fn_name, argtypes = SIGNATURES[lib_name]
-                fn = getattr(ctypes.CDLL(str(path)), fn_name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-                _entries[lib_name] = fn
-        return _entries[name]
+                lib = ctypes.CDLL(str(path))
+                for fname, argtypes in SIGNATURES[lib_name].items():
+                    f = getattr(lib, fname)
+                    f.argtypes = argtypes
+                    f.restype = ctypes.c_int
+                    _entries[(lib_name, fname)] = f
+        return _entries[key]
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of a CUDA device (grids are sized to it)."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def launch(fn, t, *args) -> int:
+    """Call a kernel entry point on tensor ``t``'s device and its current
+    stream (the last argument); only a tensor on another device than the
+    current one pays for switching devices."""
+    if t.get_device() == torch.cuda.current_device():
+        return fn(*args, torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(t.device):
+        return fn(*args, torch.cuda.current_stream().cuda_stream)
 
 
 def check(code: int, what: str) -> None:

@@ -140,28 +140,6 @@ def _geometry(h: int, w: int, padding):
     return pads, oh, ow
 
 
-_entries: dict = {}  # ctypes entry points, bound once after the build
-
-
-def _entry(name: str):
-    """The ctypes entry point of ``csrc/<name>.cu``, built on first use;
-    later calls skip the build module's lock."""
-    fn = _entries.get(name)
-    if fn is None:
-        fn = _entries[name] = _build.entry(name)
-    return fn
-
-
-def _launch(fn, t: torch.Tensor, *args) -> int:
-    """Call a kernel entry point on ``t``'s device and its current stream;
-    only a tensor on another device than the current one pays for
-    switching devices."""
-    if t.get_device() == torch.cuda.current_device():
-        return fn(*args, torch.cuda.current_stream().cuda_stream)
-    with torch.cuda.device(t.device):
-        return fn(*args, torch.cuda.current_stream().cuda_stream)
-
-
 def _vector_ok(t: torch.Tensor, c: int, extra_ptr: int = 0) -> bool:
     """Whether the kernels' vector path reads ``t``: whole 16-byte vectors
     of channels from a 16-byte aligned start (a slice at an odd storage
@@ -182,11 +160,11 @@ def _fwd_kernel(x: torch.Tensor, padding, with_index: bool):
     if y.numel() == 0:
         return y, idx
     vector = _vector_ok(x, c)
-    code = _launch(_entry("fused_pool"), x,
-                   x.data_ptr(), y.data_ptr(),
-                   idx.data_ptr() if idx is not None else None,
-                   _DTYPES[x.dtype], b, h, w, c, oh, ow, pads[0][0],
-                   pads[1][0], int(vector))
+    code = _build.launch(_build.entry("fused_pool"), x,
+                         x.data_ptr(), y.data_ptr(),
+                         idx.data_ptr() if idx is not None else None,
+                         _DTYPES[x.dtype], b, h, w, c, oh, ow, pads[0][0],
+                         pads[1][0], int(vector))
     _build.check(code, "relu_max_pool")
     relu_max_pool.launches += 1
     relu_max_pool.vector_launches += vector
@@ -218,10 +196,10 @@ def relu_max_pool_bwd(g: torch.Tensor, idx: torch.Tensor, x_shape,
     if dx.numel() == 0:
         return dx
     vector = _vector_ok(g, c, idx.data_ptr())
-    code = _launch(_entry("fused_pool_bwd"), g,
-                   g.data_ptr(), idx.data_ptr(), dx.data_ptr(),
-                   _DTYPES[g.dtype], b, h, w, c, oh, ow, pads[0][0],
-                   pads[1][0], int(vector))
+    code = _build.launch(_build.entry("fused_pool_bwd"), g,
+                         g.data_ptr(), idx.data_ptr(), dx.data_ptr(),
+                         _DTYPES[g.dtype], b, h, w, c, oh, ow, pads[0][0],
+                         pads[1][0], int(vector))
     _build.check(code, "relu_max_pool_bwd")
     relu_max_pool_bwd.launches += 1
     relu_max_pool_bwd.vector_launches += vector

@@ -7,21 +7,44 @@ element); the source note says how the design meets that.
 
     out[b] = normalize(frames[idx[b]])     (N, H, W, C) u8 -> (B, H, W, C) f32
 
-The export path gathers index batches from the resident store; serving
-passes the uploaded request batch as the store with the identity index.
-Both normalize modes are one per-channel affine map, so neither leaves the
-kernel. An index outside [0, N) raises IndexError (JAX's ``take`` would
-fill the row silently).
+The export and training paths gather index batches from the resident
+store; encoding passes the uploaded request batch as the store with the
+identity index. Both normalize modes are one per-channel affine map, so
+neither leaves the kernel. An index outside [0, N) raises IndexError
+(JAX's ``take`` would fill the row silently).
+
+The index is best given on the host (numpy or a CPU tensor): it is
+range-checked there, before any launch, and goes up through pinned memory
+without a synchronise, so the host can queue the next work while the
+device gathers. A CUDA index is taken too, but it is the slow form: the
+kernel flags an index outside the range and the wrapper reads the flag
+back, which waits for the kernel.
+
+The kernel has a vector path, taken when a frame is a whole number of
+4-byte groups and the store starts 4-byte aligned (the main paths' 224 x
+224 x 3 frames), and a scalar path for any other frame size or a store
+slice at an odd offset. The wrapper counts its launches (``launches``)
+and, beside them, its vector-path launches (``vector_launches``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
+import numpy as np
 import torch
 
 from srl_zoo_tpu_torch.ops import _build
 from srl_zoo_tpu_torch.ops.preproc import affine_params, normalize_images
+from srl_zoo_tpu_torch.utils.device import upload
+
+THREADS = 256  # threads of a block of the kernel
+# the grid's aim: about two blocks per SM, each thread striding through
+# many 4-byte groups. On the H100 that beat a full wave of resident blocks
+# (8 per SM) at both main-path batches: K2 at 32 rows 0.008 against 0.015
+# ms, at 256 rows 0.076 against 0.080 (PERF.md).
+BLOCKS_PER_SM = 2
 
 
 def gather_normalize_plain(frames: torch.Tensor, idx: torch.Tensor,
@@ -30,17 +53,56 @@ def gather_normalize_plain(frames: torch.Tensor, idx: torch.Tensor,
     return normalize_images(frames.index_select(0, idx), mode)
 
 
-def gather_normalize(frames: torch.Tensor, idx: torch.Tensor,
-                     mode: str = "tf") -> torch.Tensor:
-    """frames (N, H, W, C) uint8, idx (B,) int64 -> (B, H, W, C) float32.
+def check_host_index(idx, n: int) -> np.ndarray:
+    """A host index (numpy or a CPU tensor of integers, 1-d) as contiguous
+    int64; raises IndexError if an entry is outside [0, n)."""
+    a = idx.numpy() if isinstance(idx, torch.Tensor) else np.asarray(idx)
+    if a.ndim != 1 or not (a.size == 0 or np.issubdtype(a.dtype,
+                                                         np.integer)):
+        raise ValueError(f"gather_normalize: expected a 1-d integer index, "
+                         f"got {a.dtype} {a.shape}")
+    a = np.ascontiguousarray(a, np.int64)
+    if a.size and (a.min() < 0 or a.max() >= n):
+        raise IndexError(f"gather_normalize: an index is outside [0, {n})")
+    return a
 
-    CUDA tensors launch the kernel; CPU tensors take
+
+def blocks_per_row(rows: int, units: int, sms: int) -> int:
+    """grid.y of the kernel: blocks per row such that all rows' blocks come
+    to about ``sms`` x BLOCKS_PER_SM (at least one per row), and no block
+    is left without a slice of ``units`` (4-byte groups or bytes)."""
+    aim = sms * BLOCKS_PER_SM
+    return max(1, min(aim // rows, -(-units // THREADS), 65535))
+
+
+@functools.lru_cache(maxsize=16)
+def _params(mode: str, c: int):
+    """(scale, offset) of a mode as ctypes float pointers, with the arrays
+    they point into (kept alive with them)."""
+    scale, offset = affine_params(mode, c)
+    fp = ctypes.POINTER(ctypes.c_float)
+    return scale.ctypes.data_as(fp), offset.ctypes.data_as(fp), scale, offset
+
+
+def _is_host(idx) -> bool:
+    return not isinstance(idx, torch.Tensor) or idx.device.type == "cpu"
+
+
+def gather_normalize(frames: torch.Tensor, idx,
+                     mode: str = "tf") -> torch.Tensor:
+    """frames (N, H, W, C) uint8, idx (B,) integers -> (B, H, W, C) float32.
+
+    ``idx`` is a host index (numpy or a CPU tensor) or a tensor on the
+    store's device. A CUDA store launches the kernel; a CPU store takes
     :func:`gather_normalize_plain`; any other device raises."""
-    if frames.device != idx.device:
+    host = _is_host(idx)
+    if not host and frames.device != idx.device:
         raise ValueError(f"gather_normalize: frames on {frames.device}, "
                          f"idx on {idx.device}")
     if frames.device.type == "cpu":
-        return gather_normalize_plain(frames, idx, mode)
+        return gather_normalize_plain(
+            frames, torch.from_numpy(check_host_index(idx, frames.shape[0])),
+            mode)
     if frames.device.type != "cuda":
         raise ValueError(f"gather_normalize: no kernel for device "
                          f"{frames.device}")
@@ -49,29 +111,40 @@ def gather_normalize(frames: torch.Tensor, idx: torch.Tensor,
         raise ValueError(f"gather_normalize: expected a contiguous uint8 "
                          f"(N, H, W, C) store, got {frames.dtype} "
                          f"{tuple(frames.shape)}")
-    if idx.dtype != torch.int64 or idx.dim() != 1:
-        raise ValueError(f"gather_normalize: expected a 1-d int64 index, "
-                         f"got {idx.dtype} {tuple(idx.shape)}")
-    idx = idx.contiguous()
     n, h, w, c = frames.shape
-    scale, offset = affine_params(mode, c)
-    out = torch.empty((idx.shape[0], h, w, c), dtype=torch.float32,
+    f = h * w * c
+    if f >= 2 ** 31:
+        raise ValueError(f"gather_normalize: frames of {f} bytes (the "
+                         "kernel takes fewer than 2^31)")
+    if host:
+        idx = upload(check_host_index(idx, n), frames.device)
+        bad = None
+    else:
+        if idx.dtype != torch.int64 or idx.dim() != 1:
+            raise ValueError(f"gather_normalize: expected a 1-d int64 "
+                             f"index, got {idx.dtype} {tuple(idx.shape)}")
+        idx = idx.contiguous()
+        bad = torch.zeros(1, dtype=torch.int32, device=frames.device)
+    b = idx.shape[0]
+    out = torch.empty((b, h, w, c), dtype=torch.float32,
                       device=frames.device)
     if out.numel() == 0:
         return out
-    bad = torch.zeros(1, dtype=torch.int32, device=frames.device)
-    fp = ctypes.POINTER(ctypes.c_float)
-    with torch.cuda.device(frames.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = _build.entry("gather_norm")(
-            frames.data_ptr(), idx.data_ptr(), out.data_ptr(), bad.data_ptr(),
-            n, idx.shape[0], h * w * c, c, scale.ctypes.data_as(fp),
-            offset.ctypes.data_as(fp), stream)
+    scale, offset, _, _ = _params(mode, c)
+    vector = f % 4 == 0 and frames.data_ptr() % 4 == 0
+    per_row = blocks_per_row(b, f // 4 if vector else f,
+                             _build.sm_count(frames.get_device()))
+    code = _build.launch(_build.entry("gather_norm"), frames,
+                         frames.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                         bad.data_ptr() if bad is not None else None, n, b,
+                         f, c, scale, offset, int(vector), per_row)
     _build.check(code, "gather_normalize")
     gather_normalize.launches += 1
-    if bad.item():
+    gather_normalize.vector_launches += vector
+    if bad is not None and bad.item():  # waits for the kernel
         raise IndexError(f"gather_normalize: an index is outside [0, {n})")
     return out
 
 
 gather_normalize.launches = 0
+gather_normalize.vector_launches = 0

@@ -10,8 +10,10 @@ the source note says how the design meets that.
     returns the k smallest (d2, j) per query, ascending, ties to the lowest j
 
 The (Q, N) distance matrix never reaches device memory: each block keeps
-its distance tile in shared memory and its running best-k in registers,
-and a second pass merges the lists of the blocks that split N.
+its distances in registers and each query's running best-k in shared
+memory, and a last pass merges the lists of the blocks that split N. The
+wrapper sizes the split from the kernel's occupancy on the card
+(:func:`split_plan`).
 
 ``impl`` names the JAX package's routes. ``"auto"``, ``"pallas"`` and
 ``"pallas_t"`` take the fused kernel (one CUDA kernel serves the two TPU
@@ -22,6 +24,8 @@ ties to the lowest index as ``lax.top_k`` gives them.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from srl_zoo_tpu_torch.ops import _build
@@ -30,7 +34,10 @@ from srl_zoo_tpu_torch.ops.pairwise import (pairwise_sqdist,
 
 MAX_K = 64
 FUSED_IMPLS = ("auto", "pallas", "pallas_t")
-_TQ, _TR = 64, 64  # query and reference tile of the kernel
+_TQ, _TR = 64, 256  # query and reference tile of the kernel
+# a block's fixed work (its query tile, lists and writes), in reference
+# tiles of multiply work
+_BLOCK_OVERHEAD = 0.5
 
 
 def knn_topk_plain(q: torch.Tensor, refs: torch.Tensor, k: int,
@@ -53,12 +60,38 @@ def _smallest_k(d2: torch.Tensor, k: int):
     return d[:, :k], i[:, :k]
 
 
-def _splits(nq: int, n: int, device: torch.device) -> int:
-    """Reference splits so that about four blocks per SM are in flight."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    q_tiles = -(-nq // _TQ)
-    r_tiles = -(-n // _TR)
-    return max(1, min(r_tiles, -(-4 * sms // q_tiles)))
+@functools.lru_cache(maxsize=256)
+def split_plan(q_tiles: int, r_tiles: int, sms: int,
+               blocks_per_sm: int) -> tuple[int, int]:
+    """(splits, tiles_per_split) of the kernel's reference range.
+
+    ``q_tiles`` x splits blocks run ``blocks_per_sm`` at a time on each of
+    ``sms`` SMs; a block multiplies ``tiles_per_split`` reference tiles.
+    The plan minimises the waves of blocks times the work of one block,
+    so that the blocks fill whole waves; no split is empty, and of equal
+    costs the fewer splits (less to merge) win."""
+    slots = sms * blocks_per_sm
+    best = None
+    for tiles in range(1, r_tiles + 1):
+        splits = -(-r_tiles // tiles)
+        waves = -(-q_tiles * splits // slots)
+        key = (waves * (tiles + _BLOCK_OVERHEAD), splits)
+        if best is None or key < best[0]:
+            best = (key, splits, tiles)
+    return best[1], best[2]
+
+
+@functools.lru_cache(maxsize=256)
+def _blocks_per_sm(device_index: int, d: int, k: int) -> int:
+    """Resident blocks per SM of the kernel instance that (d, k) selects,
+    as the CUDA runtime reports it from registers and shared memory."""
+    with torch.cuda.device(device_index):
+        nb = _build.entry("knn_topk", "srl_knn_blocks_per_sm")(d, k)
+    if nb < 1:
+        raise _build.KernelLaunchError(f"knn_topk: no block of the kernel "
+                                       f"fits an SM at D={d}, k={k} "
+                                       f"(CUDA error {-nb})")
+    return nb
 
 
 def knn_topk_with_dist(q: torch.Tensor, refs: torch.Tensor, k: int,
@@ -101,16 +134,19 @@ def knn_topk_with_dist(q: torch.Tensor, refs: torch.Tensor, k: int,
     out_i = torch.empty((nq, k), dtype=torch.int32, device=q.device)
     if nq == 0:
         return out_d, out_i.to(torch.int64)
-    splits = _splits(nq, n, q.device)
+    dev = q.get_device()
+    q_tiles, r_tiles = -(-nq // _TQ), -(-n // _TR)
+    splits, tiles = split_plan(q_tiles, r_tiles, _build.sm_count(dev),
+                               _blocks_per_sm(dev, d, k))
+    norms = torch.empty(q_tiles * _TQ + r_tiles * _TR, dtype=torch.float32,
+                        device=q.device)
     part_d = torch.empty((nq, splits, k), dtype=torch.float32,
                          device=q.device)
     part_i = torch.empty((nq, splits, k), dtype=torch.int32, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = _build.entry("knn_topk")(
-            q.data_ptr(), refs.data_ptr(), part_d.data_ptr(),
-            part_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), nq, n, d,
-            k, splits, stream)
+    code = _build.launch(_build.entry("knn_topk"), q, q.data_ptr(),
+                         refs.data_ptr(), norms.data_ptr(), part_d.data_ptr(),
+                         part_i.data_ptr(), out_d.data_ptr(),
+                         out_i.data_ptr(), nq, n, d, k, splits, tiles)
     _build.check(code, "knn_topk")
     knn_topk_with_dist.launches += 1
     return out_d, out_i.to(torch.int64)

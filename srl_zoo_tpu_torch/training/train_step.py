@@ -5,7 +5,9 @@
 A batch is the loader's index batch (data/loader.py). The gather kernel
 (K2) reads its rows from the uint8 store and normalizes them, and once more
 the next frames, rows ``min(i + 1, N - 1)``, when a loss reads the next
-state (priors, forward, inverse, reward). The model runs forward (the
+state (priors, forward, inverse, reward). The indices stay on the host and
+the metadata goes up without a synchronise, so the host can queue a step
+while the device still runs the one before. The model runs forward (the
 pools' K1 forward writes the argmax plane), the loss is taken, the
 backward runs (K1's backward at each pool) and Adam steps. In train mode a
 VAE's ``eps`` is drawn from the caller's ``torch.Generator``, one (B,
@@ -25,6 +27,7 @@ import torch
 from srl_zoo_tpu_torch.losses.registry import compute_total_loss
 from srl_zoo_tpu_torch.models.srl_modules import SRLModules
 from srl_zoo_tpu_torch.ops.gather_norm import gather_normalize
+from srl_zoo_tpu_torch.utils.device import upload
 
 _PAIRS = {"same_action_partners": torch.int64,
           "same_action_mask": torch.float32,
@@ -53,12 +56,14 @@ def _inputs(model: SRLModules, frames: torch.Tensor,
     metadata tensors) and ``noise`` (the VAE's eps in train mode)."""
     cfg = model.cfg
     dev = frames.device
-    idx = torch.from_numpy(batch["indices"].astype(np.int64)).to(dev)
+    # host indices and metadata go up pinned and non-blocking: building a
+    # step's inputs waits for nothing on the device
+    idx = np.asarray(batch["indices"], np.int64)
     obs = gather_normalize(frames, idx, cfg.normalize_mode)
     next_obs = gather_normalize(
-        frames, (idx + 1).clamp_max(frames.shape[0] - 1),
+        frames, np.minimum(idx + 1, frames.shape[0] - 1),
         cfg.normalize_mode) if cfg.needs_next_obs else None
-    tensors = {k: torch.from_numpy(np.asarray(batch[k])).to(dev, dt)
+    tensors = {k: upload(np.asarray(batch[k]), dev, dt)
                for k, dt in _metadata(cfg).items()}
     noise = None
     if cfg.use_vae and model.training:
@@ -66,8 +71,8 @@ def _inputs(model: SRLModules, frames: torch.Tensor,
         noise = {name: torch.randn(shape, generator=generator, device=dev)
                  for name in ("state", "next_state")[:1 + cfg.needs_next_obs]}
     return {"obs": obs, "next_obs": next_obs,
-            "valid": torch.from_numpy(batch["valid"].astype(np.float32)).to(
-                dev), "batch": tensors, "noise": noise}
+            "valid": upload(batch["valid"], dev, torch.float32),
+            "batch": tensors, "noise": noise}
 
 
 def _loss(model: SRLModules, inputs: Dict):

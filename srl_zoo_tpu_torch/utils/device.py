@@ -6,6 +6,7 @@ do). A missing GPU is an error, never a silent move to the CPU.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -32,3 +33,21 @@ def use_strict_float32() -> None:
     JAX reference computes float32 configs in float32."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def upload(array, device: torch.device,
+           dtype: torch.dtype | None = None) -> torch.Tensor:
+    """A host array (numpy or a CPU tensor) as a tensor on ``device``.
+
+    To a CUDA device it goes through pinned memory with a non-blocking
+    copy on the current stream, so the host does not wait for the device:
+    a copy from pageable memory ends in a stream synchronise. PyTorch's
+    caching host allocator keeps the pinned block until the copy is done.
+    On the CPU the tensor may share the array's memory."""
+    t = array if isinstance(array, torch.Tensor) else \
+        torch.from_numpy(np.ascontiguousarray(array))
+    if dtype is not None:
+        t = t.to(dtype)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
