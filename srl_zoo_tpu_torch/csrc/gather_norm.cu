@@ -32,9 +32,9 @@
 //     fits in the 50 MB L2 that the first convolution reads next.
 // The scalar path (a frame size that is not a multiple of 4 bytes, or a
 // store slice that starts unaligned) is the same loop one byte per thread.
-// An index outside [0, N) never reads the store: its row is left unwritten
-// and, when the caller passes a flag (device-side indices), sets *bad. With
-// host-side indices the wrapper has checked the range before the launch.
+// The wrapper checks the index range on the host before the launch; as a
+// safety check, an index outside [0, N) never reads the store (its row is
+// left unwritten).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -79,15 +79,10 @@ template <bool VEC>
 __global__ void __launch_bounds__(THREADS, 8)
 gather_norm_kernel(const uint8_t* __restrict__ frames,
                    const int64_t* __restrict__ idx, float* __restrict__ out,
-                   int* __restrict__ bad, long long n, unsigned units, int c,
-                   NormParams p) {
+                   long long n, unsigned units, int c, NormParams p) {
   constexpr unsigned PER = VEC ? 4 : 1;
   const long long src_row = idx[blockIdx.x];
-  if (src_row < 0 || src_row >= n) {
-    if (bad != nullptr && blockIdx.y == 0 && threadIdx.x == 0)
-      atomicOr(bad, 1);
-    return;
-  }
+  if (src_row < 0 || src_row >= n) return;
   // the lanes of a warp read different channels: from shared memory that
   // is one access, from the parameter bank one per distinct channel
   __shared__ float sc[SRL_MAX_CHANNELS], of[SRL_MAX_CHANNELS];
@@ -146,13 +141,13 @@ gather_norm_kernel(const uint8_t* __restrict__ frames,
 }  // namespace
 
 // frames: (n, f) uint8; idx: (b,) int64 on the device; out: (b, f) float32.
-// bad: one int zeroed by the caller, or null (the caller checked idx).
+// idx is in [0, n): the caller checked it.
 // scale/offset: c host floats each (c <= 8). vector: take the 4-byte path,
 // which needs f % 4 == 0, frames 4-byte and out 16-byte aligned (refused
 // otherwise). per_row: blocks per row (the wrapper sizes it to the card).
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int srl_gather_normalize(const void* frames, const void* idx,
-                                    void* out, void* bad, long long n,
+                                    void* out, long long n,
                                     long long b, long long f, int c,
                                     const float* scale, const float* offset,
                                     int vector, int per_row, void* stream) {
@@ -172,11 +167,11 @@ extern "C" int srl_gather_normalize(const void* frames, const void* idx,
   cudaStream_t s = (cudaStream_t)stream;
   if (vector)
     gather_norm_kernel<true><<<grid, THREADS, 0, s>>>(
-        (const uint8_t*)frames, (const int64_t*)idx, (float*)out, (int*)bad,
-        n, (unsigned)(f / 4), c, p);
+        (const uint8_t*)frames, (const int64_t*)idx, (float*)out, n,
+        (unsigned)(f / 4), c, p);
   else
     gather_norm_kernel<false><<<grid, THREADS, 0, s>>>(
-        (const uint8_t*)frames, (const int64_t*)idx, (float*)out, (int*)bad,
-        n, (unsigned)f, c, p);
+        (const uint8_t*)frames, (const int64_t*)idx, (float*)out, n,
+        (unsigned)f, c, p);
   return (int)cudaGetLastError();
 }

@@ -39,8 +39,8 @@
 //     blocks run in no order, so nothing is carried between them.
 //   * the grid: the wrapper sizes the splits from the occupancy that the
 //     CUDA runtime reports for this instantiation (registers and shared
-//     memory), so that the Q/64 x splits blocks fill whole waves of the
-//     card's resident slots. nvcc -Xptxas -v (CUDA 12.8, sm_90a): the
+//     memory): as many splits as let the Q/64 x splits blocks fill one
+//     wave of the card's resident slots. nvcc -Xptxas -v (CUDA 12.8, sm_90a): the
 //     partial kernel takes 125-128 registers (launch bounds: 256 threads,
 //     2 blocks), no spills; its dynamic shared memory at D = 200 is
 //     91.8 KB for k <= 8 (2 blocks per SM, 264 slots on 132 SMs: the main

@@ -45,7 +45,7 @@ SIGNATURES = {
                        [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                         _P]},
     "gather_norm": {"srl_gather_normalize":
-                    [_P, _P, _P, _P, _L, _L, _L, _I, _F, _F, _I, _I, _P]},
+                    [_P, _P, _P, _L, _L, _L, _I, _F, _F, _I, _I, _P]},
     "knn_topk": {"srl_knn_topk":
                  [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
                  "srl_knn_blocks_per_sm": [_I, _I]},

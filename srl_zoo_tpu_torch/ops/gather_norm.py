@@ -16,9 +16,9 @@ neither leaves the kernel. An index outside [0, N) raises IndexError
 The index is best given on the host (numpy or a CPU tensor): it is
 range-checked there, before any launch, and goes up through pinned memory
 without a synchronise, so the host can queue the next work while the
-device gathers. A CUDA index is taken too, but it is the slow form: the
-kernel flags an index outside the range and the wrapper reads the flag
-back, which waits for the kernel.
+device gathers. A CUDA index is taken too, but it is the slow form: it is
+read back to the host first, which waits for the device, and then takes
+the same path.
 
 The kernel has a vector path, taken when a frame is a whole number of
 4-byte groups and the store starts 4-byte aligned (the main paths' 224 x
@@ -84,10 +84,6 @@ def _params(mode: str, c: int):
     return scale.ctypes.data_as(fp), offset.ctypes.data_as(fp), scale, offset
 
 
-def _is_host(idx) -> bool:
-    return not isinstance(idx, torch.Tensor) or idx.device.type == "cpu"
-
-
 def gather_normalize(frames: torch.Tensor, idx,
                      mode: str = "tf") -> torch.Tensor:
     """frames (N, H, W, C) uint8, idx (B,) integers -> (B, H, W, C) float32.
@@ -95,17 +91,17 @@ def gather_normalize(frames: torch.Tensor, idx,
     ``idx`` is a host index (numpy or a CPU tensor) or a tensor on the
     store's device. A CUDA store launches the kernel; a CPU store takes
     :func:`gather_normalize_plain`; any other device raises."""
-    host = _is_host(idx)
-    if not host and frames.device != idx.device:
-        raise ValueError(f"gather_normalize: frames on {frames.device}, "
-                         f"idx on {idx.device}")
-    if frames.device.type == "cpu":
-        return gather_normalize_plain(
-            frames, torch.from_numpy(check_host_index(idx, frames.shape[0])),
-            mode)
-    if frames.device.type != "cuda":
+    if frames.device.type not in ("cpu", "cuda"):
         raise ValueError(f"gather_normalize: no kernel for device "
                          f"{frames.device}")
+    if isinstance(idx, torch.Tensor) and idx.device.type != "cpu":
+        if frames.device != idx.device:
+            raise ValueError(f"gather_normalize: frames on {frames.device}, "
+                             f"idx on {idx.device}")
+        idx = idx.cpu()  # waits for the device: the slow form
+    idx = check_host_index(idx, frames.shape[0])
+    if frames.device.type == "cpu":
+        return gather_normalize_plain(frames, torch.from_numpy(idx), mode)
     if frames.dtype != torch.uint8 or frames.dim() != 4 or \
             not frames.is_contiguous():
         raise ValueError(f"gather_normalize: expected a contiguous uint8 "
@@ -116,15 +112,7 @@ def gather_normalize(frames: torch.Tensor, idx,
     if f >= 2 ** 31:
         raise ValueError(f"gather_normalize: frames of {f} bytes (the "
                          "kernel takes fewer than 2^31)")
-    if host:
-        idx = upload(check_host_index(idx, n), frames.device)
-        bad = None
-    else:
-        if idx.dtype != torch.int64 or idx.dim() != 1:
-            raise ValueError(f"gather_normalize: expected a 1-d int64 "
-                             f"index, got {idx.dtype} {tuple(idx.shape)}")
-        idx = idx.contiguous()
-        bad = torch.zeros(1, dtype=torch.int32, device=frames.device)
+    idx = upload(idx, frames.device)
     b = idx.shape[0]
     out = torch.empty((b, h, w, c), dtype=torch.float32,
                       device=frames.device)
@@ -136,13 +124,10 @@ def gather_normalize(frames: torch.Tensor, idx,
                              _build.sm_count(frames.get_device()))
     code = _build.launch(_build.entry("gather_norm"), frames,
                          frames.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                         bad.data_ptr() if bad is not None else None, n, b,
-                         f, c, scale, offset, int(vector), per_row)
+                         n, b, f, c, scale, offset, int(vector), per_row)
     _build.check(code, "gather_normalize")
     gather_normalize.launches += 1
     gather_normalize.vector_launches += vector
-    if bad is not None and bad.item():  # waits for the kernel
-        raise IndexError(f"gather_normalize: an index is outside [0, {n})")
     return out
 
 

@@ -35,9 +35,6 @@ from srl_zoo_tpu_torch.ops.pairwise import (pairwise_sqdist,
 MAX_K = 64
 FUSED_IMPLS = ("auto", "pallas", "pallas_t")
 _TQ, _TR = 64, 256  # query and reference tile of the kernel
-# a block's fixed work (its query tile, lists and writes), in reference
-# tiles of multiply work
-_BLOCK_OVERHEAD = 0.5
 
 
 def knn_topk_plain(q: torch.Tensor, refs: torch.Tensor, k: int,
@@ -60,25 +57,17 @@ def _smallest_k(d2: torch.Tensor, k: int):
     return d[:, :k], i[:, :k]
 
 
-@functools.lru_cache(maxsize=256)
 def split_plan(q_tiles: int, r_tiles: int, sms: int,
                blocks_per_sm: int) -> tuple[int, int]:
     """(splits, tiles_per_split) of the kernel's reference range.
 
     ``q_tiles`` x splits blocks run ``blocks_per_sm`` at a time on each of
-    ``sms`` SMs; a block multiplies ``tiles_per_split`` reference tiles.
-    The plan minimises the waves of blocks times the work of one block,
-    so that the blocks fill whole waves; no split is empty, and of equal
-    costs the fewer splits (less to merge) win."""
-    slots = sms * blocks_per_sm
-    best = None
-    for tiles in range(1, r_tiles + 1):
-        splits = -(-r_tiles // tiles)
-        waves = -(-q_tiles * splits // slots)
-        key = (waves * (tiles + _BLOCK_OVERHEAD), splits)
-        if best is None or key < best[0]:
-            best = (key, splits, tiles)
-    return best[1], best[2]
+    ``sms`` SMs: the splits are as many as fill those slots once (at least
+    one, at most one per reference tile), the tiles are shared out evenly,
+    and no split is empty."""
+    splits = max(1, min(sms * blocks_per_sm // q_tiles, r_tiles))
+    tiles = -(-r_tiles // splits)
+    return -(-r_tiles // tiles), tiles
 
 
 @functools.lru_cache(maxsize=256)
