@@ -4,6 +4,7 @@ NVIDIA GPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --pools-of CHECKOUT
+    python3 chip_smoke.py --step-seeds N
 
 Needs one CUDA card, nvcc (CUDA_HOME or PATH) and this checkout; it builds
 the kernels of ``srl_zoo_tpu_torch/csrc`` itself. Phases, each of which
@@ -25,7 +26,11 @@ prints its wall time:
    at edge shapes that reach the scalar path and the tile edges (C 3, 12,
    66 and 64 in f32, 12 and 64 in bf16; 9x13 and 1x1 images, B 1, pads
    of 0, 2 and 1 per side; slices at an odd storage offset), each on the
-   path its shape selects. Gather + normalize (K2) of 256 random rows of
+   path its shape selects. Both pools at the ResNet stem's shape (32,
+   112, 112, 64) f32 with its explicit pads ((1, 1), (1, 1)): the
+   inference and training forward and the backward, exact and on the
+   vector path, each timed beside its bound. Gather + normalize (K2) of
+   256 random rows of
    a 20,000-frame 224x224x3 store from a host index and of 32 rows (the
    training batch), both modes, within 1e-6 on the vector path, device
    and wrapper time; then at edge shapes (9x13 frames of C 1, 3, 4, 6 and
@@ -34,7 +39,7 @@ prints its wall time:
    and CUDA indices. Under ``torch.cuda.set_sync_debug_mode("error")``,
    K2 at 256 and 32 rows from a host index, and a whole train step and
    eval step (``train_step``, ``eval_step``: inputs, forward, loss,
-   backward, Adam) of configs 1 and 3, must not synchronise. Distance +
+   backward, Adam) of configs 1, 3 and 5, must not synchronise. Distance +
    top-k (K3) at Q=4,096, N=20,000, D=200, k=6 and at ten ragged shapes
    (Q 1 and 130, N = k and 1,111, D 1 to 600, k 1 to 64), distances
    within 1e-4 relative and indices equal except at ties within that
@@ -62,26 +67,32 @@ prints its wall time:
    route's (equal but at counted near ties) and its score against the
    fused one's (1e-6), and an export of 2,048 rows is profiled (device
    time by kernel, busy share).
-4. Training of BASELINE configs 1-4 (custom_cnn, 224x224x3, state_dim 200,
-   batch 32, lr 5e-3, BN momentum 0.9): 1 autoencoder, 2 vae, 3 priors,
-   4 ``autoencoder:1:100 inverse:2:50 forward:1:25 reward:1:25``. For
-   each: one train step on the card against the same step on the CPU
-   (plain versions) and in float64, batch 8, from the same weights (and
-   the VAE's same eps): loss and gradients within twice the CPU f32
-   step's deviation from float64. A 4,096-frame 224x224x3 dataset folder
-   with structure is written, and the train CLI
-   (``srl_zoo_tpu_torch.train.main``) trains each config on it (config 1
-   for 3 epochs, configs 2-4 for 2), exports its states and scores GTC;
-   KNN-MSE of the exported states is then scored through both neighbour
-   routes (K3 and K4). Launch counts are zeroed just before and read just
+4. Training of BASELINE configs 1-5 (224x224x3, state_dim 200, batch 32,
+   lr 5e-3, BN momentum 0.9): 1 autoencoder, 2 vae, 3 priors, 4
+   ``autoencoder:1:100 inverse:2:50 forward:1:25 reward:1:25`` (custom_cnn),
+   5 triplet (ResNet-18, ``--multi-view``), and the 6-channel input of
+   ``--multi-view`` without triplet (ResNet-18, priors). For each: one
+   train step on the card against the same step on the CPU (plain
+   versions) and in float64, batch 8, from the same weights (and the
+   VAE's same eps): loss and gradients within twice the CPU f32 step's
+   deviation from float64 (the ResNet steps: the whole gradient's and the
+   stem's relative L2, the CPU at the larger of two orders of summation,
+   all cores and one thread). A two-camera 4,096-frame 224x224x3 dataset
+   folder with structure is written (the second view mirrored, in other
+   colours), and the train CLI (``srl_zoo_tpu_torch.train.main``) trains
+   each config on it (config 1 for 3 epochs, the others for 2), exports
+   its states and scores GTC; KNN-MSE of
+   the exported states is then scored through both neighbour routes (K3
+   and K4), and the server answers one round of 8 concurrent frames from
+   each ResNet run. Launch counts are zeroed just before and read just
    after; K1, K1b, K2, K3 and K4 must have run, the pools and the gather
-   on their vector path. The training loss must
-   fall, the exported states must match a direct encode (1e-5), and the
+   on their vector path. The training loss must fall, the exported
+   states and the served ones must match a direct encode (1e-5), and the
    two routes' scores must agree (1e-6); train images/s and export
    states/s are printed. Then each pool's input must be channels_last
-   (the pool reads it in place), and 8 train steps of config 1 are
-   profiled (device time by kernel, busy share, layout transposes and the
-   operations that launch them).
+   (the pool reads it in place), and 8 train steps each of configs 1 and
+   5 are profiled (device time by kernel, busy share, layout transposes
+   and the operations that launch them).
 5. A ``{"kernels": [...]}`` line (launches summed over all the paths;
    every kernel with ``device_ms``, the kernel alone, beside ``ms``, the
    wrapper), the nvidia-smi line, and last ``{"ok": true, "device":
@@ -95,6 +106,10 @@ index where that tree's wrapper takes no host index), and prints a
 ``{"tree": ..., "pool_times": [...], "kernel_times": [...]}`` line and the
 card, so that the device times of two trees' kernels can be compared in
 one run on one card.
+
+With ``--step-seeds N`` it runs only phase 4's card-vs-CPU step of the
+two ResNet configs at seeds 0..N-1, holds nothing, and prints each held
+measure's ratio to its limit per seed and the largest over the seeds.
 
 Bounds use the H100 SXM data-sheet rates at 700 W: 3.35 TB/s of device
 memory and 67 TFLOP/s of float32 outside the tensor cores. No single
@@ -139,14 +154,19 @@ POOLS = (IMG[0] // 2, IMG[0] // 8, IMG[0] // 32)  # 112, 28, 7 at 224
 # back-to-back pool calls per wrapper time: at the 28^2 and 7^2 pools a
 # call is host time, which swings with the shared host over 10 calls
 WRAPPER_CALLS = 100
-# BASELINE configs 1-4: name, --losses tokens, epochs here (30 in the
-# configs; cut to stay well inside the script's time limit)
+# config 5's model and views: ResNet-18 on a two-camera dataset
+RESNET_VIEWS = {"model_type": "resnet", "multi_view": True}
+# BASELINE configs 1-5: name, --losses tokens, epochs here (30 in the
+# configs; cut to stay well inside the script's time limit), model and
+# views; then the 6-channel input of --multi-view without triplet
 TRAIN_CONFIGS = (
-    ("autoencoder", ("autoencoder",), 3),
-    ("vae", ("vae",), 2),
-    ("priors", ("priors",), 2),
+    ("autoencoder", ("autoencoder",), 3, {}),
+    ("vae", ("vae",), 2, {}),
+    ("priors", ("priors",), 2, {}),
     ("splits", ("autoencoder:1:100", "inverse:2:50", "forward:1:25",
-                "reward:1:25"), 2),
+                "reward:1:25"), 2, {}),
+    ("triplet", ("triplet",), 2, RESNET_VIEWS),
+    ("multiview", ("priors",), 2, RESNET_VIEWS),
 )
 INFERENCE_KERNELS = ("relu_max_pool", "gather_normalize", "knn_topk",
                      "pairwise_sqdist")
@@ -399,6 +419,74 @@ def check_pool_bwd(dev, g, times: list) -> dict:
     return t
 
 
+def check_stem_pool(dev, g, times: list) -> None:
+    """K1f and K1b at the ResNet stem's pool, (TRAIN_BATCH, 112, 112, 64)
+    f32 with the explicit pads ((1, 1), (1, 1)) (its 56 x 56 output is the
+    size of 'SAME', whose windows at 112 px pad (0, 1)): the inference
+    forward, the training forward (with the index plane) and the backward,
+    each exact against its plain version (integer-valued inputs and
+    cotangents for the backward, so every sum is exact) and on the vector
+    path; then each one's device time (torch.profiler), wrapper time (CUDA
+    events over WRAPPER_CALLS calls) and plain time beside its bound.
+    Appends one record per timing to ``times``."""
+    import torch
+    from srl_zoo_tpu_torch.models.resnet import STEM_POOL_PADS as pads
+    from srl_zoo_tpu_torch.ops.fused_pool import (relu_max_pool,
+                                                  relu_max_pool_bwd,
+                                                  relu_max_pool_bwd_plain,
+                                                  relu_max_pool_plain)
+    shape = (TRAIN_BATCH, POOLS[0], POOLS[0], 64)
+    x = torch.randint(-2, 3, shape, generator=g, device=dev).float()
+    (y, idx), path = path_of(relu_max_pool, lambda: relu_max_pool(
+        x, pads, with_index=True))
+    yp, ip = relu_max_pool_plain(x, pads, with_index=True)
+    gy = torch.randint(-8, 9, yp.shape, generator=g, device=dev).float()
+    dx, bpath = path_of(relu_max_pool_bwd,
+                        lambda: relu_max_pool_bwd(gy, idx, shape, pads))
+    ref = relu_max_pool_bwd_plain(gy, ip, shape, pads)
+    torch.cuda.synchronize()
+    if not (torch.equal(y, yp) and torch.equal(idx, ip)
+            and torch.equal(relu_max_pool(x, pads), yp)
+            and torch.equal(dx, ref)):
+        raise AssertionError(
+            f"stem pool {shape} pads {pads}: y err "
+            f"{float((y - yp).abs().max())}, {int((idx != ip).sum())} "
+            f"argmax mismatches, dx err {float((dx - ref).abs().max())}")
+    if path != "vector" or bpath != "vector":
+        raise AssertionError(f"stem pool {shape}: forward took the {path} "
+                             f"path, backward the {bpath}")
+    x = torch.randn(shape, generator=g, device=dev)
+    xg = x.detach().requires_grad_()
+    _, ip = relu_max_pool_plain(x, pads, with_index=True)
+    gy = torch.randn(yp.shape, generator=g, device=dev)
+    out, n_out = yp.numel(), x.numel()
+    runs = (
+        ("K1f relu_max_pool, stem", "relu_max_pool_fwd", False,
+         lambda: relu_max_pool(x, pads),
+         lambda: relu_max_pool_plain(x, pads), (n_out + out) * 4,
+         10 * out),
+        ("K1f relu_max_pool, stem training forward (+idx)",
+         "relu_max_pool_fwd", True, lambda: relu_max_pool(xg, pads),
+         lambda: relu_max_pool_plain(x, pads, with_index=True),
+         (n_out + out) * 4 + out, 10 * out),
+        ("K1b relu_max_pool_bwd, stem", "relu_max_pool_bwd", True,
+         lambda: relu_max_pool_bwd(gy, ip, shape, pads),
+         lambda: relu_max_pool_bwd_plain(gy, ip, shape, pads),
+         out * (4 + 1) + n_out * 4, 8 * n_out),
+    )
+    for what, kernel, index, call, plain_call, nbytes, ops in runs:
+        dev_ms = device_ms(call, kernel)
+        ms = time_ms(call, iters=WRAPPER_CALLS)
+        plain = time_ms(plain_call)
+        b, by = bound(nbytes, ops)
+        log(pool_line(what, shape, torch.float32, dev_ms, ms, plain, b, by)
+            + f"; pads {pads}, exact, vector path")
+        times.append({"kernel": what.split()[0], "shape": list(shape),
+                      "dtype": "float32", "index": index, "pads": pads,
+                      "device_ms": dev_ms, "ms": ms, "plain_ms": plain,
+                      "bound_ms": b})
+
+
 def check_pool_edges(dev, g) -> None:
     """K1f (y and idx) and K1b (dx) equal to their plain versions at the
     shapes that reach the scalar path and the vector path's tile edges:
@@ -593,16 +681,18 @@ def check_gather_edges(store, dev, g) -> None:
         f"raise IndexError from host (before a launch) and CUDA indices")
 
 
-def step_batch(indices: np.ndarray, rng) -> dict:
+def step_batch(indices: np.ndarray, rng, n_rows: int) -> dict:
     """A loader-style batch of the store rows ``indices``, with the
-    metadata of every loss (actions, rewards, the priors' pairs)."""
+    metadata of every loss (actions, rewards, the priors' pairs, the
+    triplet's negatives among the store's ``n_rows`` rows)."""
     from srl_zoo_tpu_torch.data import samplers
     b = len(indices)
     actions = rng.randint(0, 4, b).astype(np.int32)
     rewards = rng.randint(0, 2, b).astype(np.int32)
     batch = {"indices": indices.astype(np.int32),
              "valid": np.ones(b, np.float32), "actions": actions,
-             "reward_classes": rewards}
+             "reward_classes": rewards,
+             "neg_indices": rng.randint(0, n_rows, b).astype(np.int32)}
     (batch["same_action_partners"],
      batch["same_action_mask"]) = samplers.find_same_action_pairs(actions,
                                                                   rng)
@@ -616,11 +706,13 @@ def check_no_sync(store, dev) -> None:
     """Under ``torch.cuda.set_sync_debug_mode("error")``, K2 at the export
     and training batch from a host index, and one whole ``train_step`` and
     ``eval_step`` (inputs, forward, loss, backward, Adam) of configs 1
-    (autoencoder) and 3 (priors: the next frames and the pairs' metadata)
-    at batch 32, complete without a synchronise. The mode is first shown
-    to catch one (a pageable upload); each call runs once before, outside
-    the mode, for its first-use work (the build, the pinned-memory pool,
-    cuDNN's plans, Adam's state)."""
+    (autoencoder), 3 (priors: the next frames and the pairs' metadata)
+    and 5 (triplet, ResNet-18: the second view's positives and the
+    negatives, each view's store here the same tensor) at batch 32,
+    complete without a synchronise. The mode is first shown to catch one
+    (a pageable upload); each call runs once before, outside the mode, for
+    its first-use work (the build, the pinned-memory pool, cuDNN's plans,
+    Adam's state)."""
     import torch
     from srl_zoo_tpu_torch.evaluation.predict_dataset import BATCH
     from srl_zoo_tpu_torch.ops.gather_norm import gather_normalize
@@ -631,15 +723,17 @@ def check_no_sync(store, dev) -> None:
     calls = [(f"K2 B={rows}", lambda rows=rows: gather_normalize(
         store, rng.randint(0, n, rows))) for rows in (BATCH, TRAIN_BATCH)]
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    for name, tokens, _ in TRAIN_CONFIGS[::2]:  # configs 1 and 3
-        cfg = train_config(tokens, TRAIN_BATCH)
+    views = {"frames": store, "frames_2": store}
+    for name, tokens, _, model_kw in TRAIN_CONFIGS[:5:2]:  # configs 1, 3, 5
+        cfg = train_config(tokens, TRAIN_BATCH, model_kw)
         model = make_model(cfg, dev)
         opt = make_optimizer(cfg, model)
-        batch = step_batch(rng.choice(n, TRAIN_BATCH, replace=False), rng)
+        batch = step_batch(rng.choice(n, TRAIN_BATCH, replace=False), rng,
+                           n)
         calls.append((f"train_step of {name}", lambda m=model, o=opt,
-                      b=batch: train_step(m, o, store, b, gen)))
+                      b=batch: train_step(m, o, views, b, gen)))
         calls.append((f"eval_step of {name}", lambda m=model, b=batch:
-                      eval_step(m, store, b)))
+                      eval_step(m, views, b)))
     for _, call in calls:
         call()
     torch.cuda.synchronize()
@@ -879,13 +973,34 @@ def post(url: str, arr: np.ndarray):
     return states, (time.perf_counter() - t0) * 1e3
 
 
+def serve_round(url: str, payloads) -> tuple:
+    """One round of concurrent requests, a client thread each: ([(states,
+    latency ms)] in the order of ``payloads``, the round's seconds)."""
+    replies = [None] * len(payloads)
+
+    def client(i):
+        replies[i] = post(url, payloads[i])
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(payloads))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    if any(t.is_alive() for t in threads) or None in replies:
+        raise AssertionError("a request did not complete")
+    return replies, time.perf_counter() - t0
+
+
 def profile_export(encoder, store, rows: int = 2048) -> None:
     """Device time by kernel, and the device's busy share of the wall
-    time, over an export of ``rows`` rows (torch.profiler, CUPTI)."""
+    time, over an export of ``rows`` rows of the store dict ``store``
+    (torch.profiler, CUPTI)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from srl_zoo_tpu_torch.evaluation.predict_dataset import predict_states
-    idx = np.arange(min(rows, store.shape[0]))
+    idx = np.arange(min(rows, store["frames"].shape[0]))
     predict_states(encoder, store, idx)  # warm
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -964,34 +1079,16 @@ def run_slice(run_dir, frames_np, store, gt, counters) -> dict:
     url = f"http://127.0.0.1:{server.server_address[1]}"
     payloads = [frames_np[i] for i in range(8)] + [frames_np[8:24],
                                                    frames_np[24:40]]
-
-    def serve_round():
-        replies = [None] * len(payloads)
-
-        def client(i):
-            replies[i] = post(url, payloads[i])
-
-        threads = [threading.Thread(target=client, args=(i,))
-                   for i in range(len(payloads))]
-        t0 = time.perf_counter()
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(300)
-        if any(t.is_alive() for t in threads) or None in replies:
-            raise AssertionError("a request did not complete")
-        return replies, time.perf_counter() - t0
-
     try:
         # --- the main path, with the launch counts zeroed just before -----
         zero_counts(counters)
         # the first round is what the first clients of a fresh server see
-        first_replies, first_s = serve_round()
-        replies, serve_s = serve_round()
+        first_replies, first_s = serve_round(url, payloads)
+        replies, serve_s = serve_round(url, payloads)
 
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        states = predict_states(encoder, store)
+        states = predict_states(encoder, {"frames": store})
         export_s = time.perf_counter() - t0
 
         t0 = time.perf_counter()
@@ -1058,7 +1155,7 @@ def run_slice(run_dir, frames_np, store, gt, counters) -> dict:
             f"{int((nbrs != plain_nbrs).sum())} neighbour indices differ")
     log(f"knn_mse vs plain top-k: {score:.9f} vs {plain_score:.9f}")
     check_full_route(refs[qi], refs, full_idx, queries, gt, score)
-    profile_export(encoder, store)
+    profile_export(encoder, {"frames": store})
     return launches
 
 
@@ -1067,9 +1164,12 @@ def run_slice(run_dir, frames_np, store, gt, counters) -> dict:
 # ---------------------------------------------------------------------------
 
 def write_train_dataset(folder: str) -> None:
-    """A dataset folder of TRAIN_FRAMES 224x224x3 frames in TRAIN_EPISODES
-    episodes: a red square walks on a shaded background, and its centre
-    (scaled to [0, 1]) is the ground truth; a reward of 1 near the middle."""
+    """A two-camera dataset folder of TRAIN_FRAMES 224x224x3 frames in
+    TRAIN_EPISODES episodes: a red square walks on a shaded background,
+    and its centre (scaled to [0, 1]) is the ground truth; a reward of 1
+    near the middle. The second view (``frames_2.npy``) is the scene
+    mirrored left to right in other colours, as the JAX package's
+    synthetic two-view datasets are."""
     rng = np.random.RandomState(SEED)
     n, (h, w, c) = TRAIN_FRAMES, IMG
     ep_len = n // TRAIN_EPISODES
@@ -1090,71 +1190,120 @@ def write_train_dataset(folder: str) -> None:
     np.savez(os.path.join(folder, "ground_truth.npz"),
              ground_truth_states=gt,
              images_path=np.array([f"frame{i:06d}.jpg" for i in range(n)]))
-    frames = np.lib.format.open_memmap(os.path.join(folder, "frames.npy"),
-                                       mode="w+", dtype=np.uint8,
-                                       shape=(n, h, w, c))
     yy = np.arange(h)[None, :, None]
     xx = np.arange(w)[None, None, :]
-    shade = (60 + 80 * yy / h + 40 * xx / w).astype(np.uint8)[0]
-    for s in range(0, n, 256):
-        p = pos[s:s + 256]
-        sq = (np.abs(yy - p[:, 0, None, None]) < 12) & \
-            (np.abs(xx - p[:, 1, None, None]) < 12)
-        block = np.empty((len(p), h, w, c), np.uint8)
-        block[:] = shade[None, :, :, None]
-        block[sq] = (220, 40, 40)
-        frames[s:s + 256] = block
-    frames.flush()
-    del frames
+    views = (("frames", (60, 80, 40), (220, 40, 40), pos),
+             ("frames_2", (90, 50, 70), (40, 200, 60),
+              np.stack([pos[:, 0], w - 1 - pos[:, 1]], axis=1)))
+    for name, (base, dy, dx), colour, p_all in views:
+        frames = np.lib.format.open_memmap(
+            os.path.join(folder, f"{name}.npy"), mode="w+", dtype=np.uint8,
+            shape=(n, h, w, c))
+        shade = (base + dy * yy / h + dx * xx / w).astype(np.uint8)[0]
+        for s in range(0, n, 256):
+            p = p_all[s:s + 256]
+            sq = (np.abs(yy - p[:, 0, None, None]) < 12) & \
+                (np.abs(xx - p[:, 1, None, None]) < 12)
+            block = np.empty((len(p), h, w, c), np.uint8)
+            block[:] = shade[None, :, :, None]
+            block[sq] = colour
+            frames[s:s + 256] = block
+        frames.flush()
+        del frames
 
 
-def train_config(tokens, batch_size: int):
+def train_config(tokens, batch_size: int, model_kw=None):
     """SRLConfig of a --losses token list at the full width of the
-    BASELINE configs (4 actions, 2 reward classes, as the dataset)."""
+    BASELINE configs (4 actions, 2 reward classes, as the dataset), with
+    the model and views of ``model_kw`` (custom_cnn on one view if
+    empty)."""
     from srl_zoo_tpu_torch.config import SRLConfig, parse_loss_arguments
     losses, splits = parse_loss_arguments(list(tokens), STATE_DIM)
     return SRLConfig(state_dim=STATE_DIM, img_height=IMG[0],
                      img_width=IMG[1], batch_size=batch_size, seed=SEED,
                      losses=tuple(losses.items()),
                      split_dims=tuple(splits.items()), n_actions=4,
-                     n_reward_classes=2)
+                     n_reward_classes=2, **(model_kw or {}))
 
 
-def check_train_step_on_cpu(dev, name: str, tokens) -> None:
+def cli_flags(model_kw) -> list:
+    """The train CLI's flags of ``model_kw``."""
+    return (["--model-type", model_kw.get("model_type", "custom_cnn")]
+            + (["--multi-view"] if model_kw.get("multi_view") else []))
+
+
+def stacked_frames(dataset, rows, cfg) -> np.ndarray:
+    """uint8 observations of ``rows`` as the encoder of ``cfg`` takes them:
+    both views on the channel axis where it stacks them."""
+    frames = np.asarray(dataset.frames[rows])
+    if cfg.stack_views:
+        frames = np.concatenate([frames, np.asarray(dataset.frames_2[rows])],
+                                axis=-1)
+    return frames
+
+
+STEM = ("encoder.conv1.", "encoder.bn1.")  # the ResNet stem's tensors
+
+
+def check_train_step_on_cpu(dev, name: str, tokens, model_kw,
+                            seed: int = SEED, hold: bool = True) -> dict:
     """One train-mode forward + backward of a config at 224 px, batch
-    CPU_STEP_BATCH, from the same weights, frames, metadata and (VAE)
-    noise on the card (kernels, f32), on the CPU (plain versions, f32)
-    and on the CPU in float64. At this geometry the train-mode BatchNorm
-    backwards cancel heavily, and f32 gradients stray from the float64
-    ones by ~1e-3 of their scale on either device. So the card's step is
-    held to the float64 one within twice the CPU f32 step's worst
-    deviation (+1e-5): its loss, and each gradient relative to its
-    tensor's largest float64 magnitude (a bias in front of a train-mode
-    BatchNorm has an exact gradient of 0; there the scale is 1e-2 of the
-    model's largest gradient)."""
+    CPU_STEP_BATCH, from the same weights, frames (a second view where
+    the config reads one: the first mirrored, channels reversed),
+    metadata and (VAE) noise, all drawn from ``seed``, on the card
+    (kernels, f32), on the CPU (plain versions, f32) and on the CPU in
+    float64. At this geometry the train-mode BatchNorm backwards cancel
+    heavily, and f32 gradients stray from the float64 ones by ~1e-3 of
+    their scale on either device. So the card's step is held to the
+    float64 one within twice the CPU f32 step's deviation (+1e-5): its
+    loss, and each gradient relative to its tensor's largest float64
+    magnitude (a bias in front of a train-mode BatchNorm has an exact
+    gradient of 0; there the scale is 1e-2 of the model's largest
+    gradient), the worst tensor.
+
+    A ResNet-18 step has, besides, ReLU inputs within rounding of 0, which
+    each order of summation routes its own way, and a tensor above such a
+    ReLU strays by several percent of its scale (printed), so the worst
+    tensor is a matter of where the routings fall. For it the relative L2
+    deviation is held instead, of the whole gradient and of the stem's
+    tensors (conv1, bn1: the only gradients that the stem pool's routing
+    reaches, ~1e-3 of the model's), and the CPU's f32 deviation is the
+    larger of two orders of summation: the CPU step on all cores and on
+    one thread. All measures are printed. Returns each run's deviations;
+    with ``hold`` False nothing is held (``--step-seeds``)."""
     import copy
 
     import torch
     from srl_zoo_tpu_torch.training.state import make_model
     from srl_zoo_tpu_torch.training.train_step import _inputs, _loss
-    cfg = train_config(tokens, CPU_STEP_BATCH)
+    cfg = train_config(tokens, CPU_STEP_BATCH, model_kw).replace(seed=seed)
     b = CPU_STEP_BATCH
-    rng = np.random.RandomState(SEED)
+    rng = np.random.RandomState(seed)
     frames = torch.from_numpy(rng.randint(0, 256, (b + 1,) + IMG).astype(
         np.uint8))  # row b is the last row's next frame
-    batch = step_batch(np.arange(b), rng)
+    store = {"frames": frames,
+             "frames_2": frames.flip(2, 3).contiguous()}
+    batch = step_batch(np.arange(b), rng, b + 1)
     eps = torch.randn((2, b, STATE_DIM),
-                      generator=torch.Generator().manual_seed(SEED))
+                      generator=torch.Generator().manual_seed(seed))
     cpu = make_model(cfg, torch.device("cpu"))
-    runs = (("card", copy.deepcopy(cpu).to(
-        dev, memory_format=torch.channels_last), dev, torch.float32),
-        ("cpu", copy.deepcopy(cpu), torch.device("cpu"), torch.float32),
-        ("f64", cpu.double(), torch.device("cpu"), torch.float64))
+    whole = cfg.model_type == "resnet"
+    host = torch.device("cpu")
+    runs = [("card", copy.deepcopy(cpu).to(
+        dev, memory_format=torch.channels_last), dev, torch.float32, 0),
+        ("cpu", copy.deepcopy(cpu), host, torch.float32, 0)]
+    if whole:
+        runs.append(("cpu, one thread", copy.deepcopy(cpu), host,
+                     torch.float32, 1))
+    runs.append(("f64", cpu.double(), host, torch.float64, 0))
     res = {}
-    for run, model, d, dt in runs:
+    threads = torch.get_num_threads()
+    for run, model, d, dt, n_threads in runs:
+        torch.set_num_threads(n_threads or threads)
         model.train()
-        inputs = _inputs(model, frames.to(d), batch)
-        for k in ("obs", "next_obs"):
+        inputs = _inputs(model, {k: v.to(d) for k, v in store.items()},
+                         batch)
+        for k in ("obs", "next_obs", "pos_obs", "neg_obs"):
             if inputs[k] is not None:
                 inputs[k] = inputs[k].to(dt)
         if cfg.use_vae:
@@ -1165,60 +1314,109 @@ def check_train_step_on_cpu(dev, name: str, tokens) -> None:
         res[run] = (float(loss.detach()),
                     {k: p.grad.detach().double().cpu()
                      for k, p in model.named_parameters()})
-    l64, g64 = res["f64"]
+    torch.set_num_threads(threads)
+    l64, g64 = res.pop("f64")
     floor = 1e-2 * max(float(v.abs().max()) for v in g64.values())
+
+    def rel_l2(grads, keys) -> float:
+        return float(torch.cat([(grads[k] - g64[k]).ravel() for k in keys])
+                     .norm() / torch.cat([g64[k].ravel() for k in keys])
+                     .norm())
+
+    stem = [k for k in g64 if k.startswith(STEM)] if whole else []
     dev_of = {}
-    for run in ("card", "cpu"):
-        loss, grads = res[run]
-        dev_of[run] = (abs(loss - l64) / abs(l64), max(
+    for run, (loss, grads) in res.items():
+        dev_of[run] = {"loss": abs(loss - l64) / abs(l64), "worst": max(
             float((grads[k] - g64[k]).abs().max())
-            / max(float(g64[k].abs().max()), floor) for k in g64))
-    (lc, gc), (lp, gp) = dev_of["card"], dev_of["cpu"]
-    if lc > 2 * lp + 1e-5 or gc > 2 * gp + 1e-5:
-        raise AssertionError(f"{name} train step against float64: card loss "
-                             f"{lc:.3g} gradients {gc:.3g}, CPU f32 loss "
-                             f"{lp:.3g} gradients {gp:.3g}")
-    log(f"{name}: train step at batch {b}, {IMG[0]} px, against the "
-        f"float64 step: card loss {lc:.3g}, gradients {gc:.3g} of their "
-        f"scale; CPU f32 loss {lp:.3g}, gradients {gp:.3g}")
+            / max(float(g64[k].abs().max()), floor) for k in g64),
+            "l2": rel_l2(grads, list(g64))}
+        if stem:
+            dev_of[run]["stem_l2"] = rel_l2(grads, stem)
+    report = "; ".join(
+        f"{run} loss {d['loss']:.3g}, gradients {d['worst']:.3g} of their "
+        f"scale (whole gradient L2 {d['l2']:.3g}"
+        + (f", stem L2 {d['stem_l2']:.3g}" if stem else "") + ")"
+        for run, d in dev_of.items())
+    # the measures held, and the CPU deviations that bound them
+    held = ("loss", "l2", "stem_l2") if whole else ("loss", "worst")
+    cpus = [d for run, d in dev_of.items() if run != "card"]
+    over = [m for m in held if dev_of["card"][m]
+            > 2 * max(d[m] for d in cpus) + 1e-5]
+    what = ("the whole gradient and the stem" if whole
+            else "the worst tensor")
+    if hold and over:
+        raise AssertionError(f"{name} train step against float64: {report}; "
+                             f"held: {what}; over: {', '.join(over)}")
+    log(f"{name}: train step at batch {b}, {IMG[0]} px, seed {seed}, "
+        f"against the float64 step: {report}; held: {what}"
+        + (f"; over: {', '.join(over)}" if over else ""))
+    return dev_of
 
 
-def profile_training(dev, data_folder: str) -> None:
+def step_seeds(dev, n: int) -> None:
+    """The ResNet configs' card-vs-CPU step at seeds 0..n-1, nothing held:
+    each held measure's ratio card / (2 x the larger CPU order's) per
+    seed, and its largest over the seeds (the margin the rule leaves)."""
+    for name, tokens, _, model_kw in TRAIN_CONFIGS:
+        if model_kw.get("model_type") != "resnet":
+            continue
+        worst = {}
+        for seed in range(n):
+            d = check_train_step_on_cpu(dev, name, tokens, model_kw, seed,
+                                        hold=False)
+            ratios = {m: d["card"][m] / (2 * max(
+                v[m] for r, v in d.items() if r != "card"))
+                for m in ("loss", "l2", "stem_l2")}
+            log(f"{name} seed {seed}: card / (2 x CPU): " + ", ".join(
+                f"{m} {r:.3g}" for m, r in ratios.items()))
+            for m, r in ratios.items():
+                worst[m] = max(worst.get(m, 0.0), r)
+        log(f"{name}: largest card / (2 x CPU) over {n} seeds: " + ", ".join(
+            f"{m} {r:.3g}" for m, r in worst.items()))
+
+
+def profile_training(dev, data_folder: str, name: str, tokens,
+                     model_kw) -> None:
     """Device time by kernel, and the device's busy share, over
-    PROFILE_STEPS train steps of config 1 at batch 32 (torch.profiler),
+    PROFILE_STEPS train steps of a config at batch 32 (torch.profiler),
     and the layout transposes among them (channels_last keeps them out)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from srl_zoo_tpu_torch.config import SRLConfig
     from srl_zoo_tpu_torch.data.device_cache import build_cache
     from srl_zoo_tpu_torch.data.loader import DataLoader
     from srl_zoo_tpu_torch.data.schema import load_dataset
     from srl_zoo_tpu_torch.training.state import make_model, make_optimizer
     from srl_zoo_tpu_torch.training.train_step import train_step
-    cfg = SRLConfig(state_dim=STATE_DIM, img_height=IMG[0], img_width=IMG[1],
-                    batch_size=TRAIN_BATCH, seed=SEED)
+    cfg = train_config(tokens, TRAIN_BATCH, model_kw)
     dataset = load_dataset(data_folder)
-    store = build_cache(dataset, dev)["frames"]
+    store = build_cache(dataset, dev, cfg.needs_second_view)
     model = make_model(cfg, dev)
     opt = make_optimizer(cfg, model)
     batches = iter(DataLoader(dataset, dataset.training_indices(),
-                              TRAIN_BATCH, seed=SEED))
-    gen = torch.Generator(device=dev).manual_seed(SEED)  # config 1 draws none
+                              TRAIN_BATCH, seed=SEED, priors=cfg.use_priors,
+                              triplet=cfg.use_triplet))
+    gen = torch.Generator(device=dev).manual_seed(SEED)  # no VAE: draws none
     train_step(model, opt, store, next(batches), gen)  # warm: cuDNN plans
     # each pool reads the NHWC view of its BatchNorm's output: that view
     # is the tensor itself (no copy) only if the output is channels_last
+    enc = model.encoder
+    pool_bns = list(enc.bns) if hasattr(enc, "bns") else [enc.bn1]
     layouts = []
     hooks = [bn.register_forward_hook(lambda m, i, out: layouts.append(
         out.is_contiguous(memory_format=torch.channels_last)))
-        for bn in model.encoder.bns]
+        for bn in pool_bns]
     train_step(model, opt, store, next(batches), gen)
     for h in hooks:
         h.remove()
-    if layouts != [True] * len(model.encoder.bns):
+    # one record per pool BatchNorm and encoder pass: obs, next obs (where
+    # a loss reads it), and the triplet's positive and negative
+    passes = 1 + cfg.needs_next_obs + 2 * cfg.use_triplet
+    if layouts != [True] * (len(pool_bns) * passes):
         raise AssertionError(f"a pool's input is not channels_last, so the "
-                             f"pool reads a copy: {layouts}")
-    log(f"the {len(layouts)} pools read their BatchNorm outputs in place "
-        "(channels_last)")
+                             f"pool reads a copy, or the step made other "
+                             f"than {passes} encoder passes: {layouts}")
+    log(f"{name}: the {len(layouts)} pool calls of a step read their "
+        "BatchNorm outputs in place (channels_last)")
     steps = [next(batches) for _ in range(PROFILE_STEPS)]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1237,7 +1435,8 @@ def profile_training(dev, data_folder: str) -> None:
                and not getattr(e, "is_user_annotation", False)
                and not e.key.startswith("Optimizer.")]
     busy = sum(e.self_device_time_total for e in kernels)
-    log(f"profile train {PROFILE_STEPS} steps of batch {TRAIN_BATCH}: wall "
+    log(f"{name}: profile train {PROFILE_STEPS} steps of batch "
+        f"{TRAIN_BATCH}: wall "
         f"{wall_us / 1e3:.2f} ms ({wall_us / 1e3 / PROFILE_STEPS:.2f} ms per "
         f"step), device busy {busy / 1e3:.2f} ms "
         f"({100 * busy / wall_us:.1f}%), idle "
@@ -1246,6 +1445,12 @@ def profile_training(dev, data_folder: str) -> None:
         log(f"  {e.self_device_time_total / 1e3:8.3f} ms "
             f"{100 * e.self_device_time_total / busy:5.1f}% x{e.count:<4d} "
             f"{e.key[:90]}")
+    for what, key in (("K1f", "relu_max_pool_fwd"),
+                      ("K1b", "relu_max_pool_bwd"), ("K2", "gather_norm")):
+        mine = [e for e in kernels if key in e.key]
+        t = sum(e.self_device_time_total for e in mine)
+        log(f"  {what}: {t / 1e3:.3f} ms ({100 * t / max(busy, 1e-9):.1f}% "
+            f"of busy), {sum(e.count for e in mine)} launches")
     layout = [e for e in kernels if is_transpose(e.key)]
     lt = sum(e.self_device_time_total for e in layout)
     log(f"  layout transposes (nchw<->nhwc): {sum(e.count for e in layout)} "
@@ -1272,29 +1477,32 @@ def is_transpose(name: str) -> bool:
 
 
 def run_training(data_folder: str, run_dir: str, dev, counters, name: str,
-                 tokens, epochs: int) -> dict:
+                 tokens, epochs: int, model_kw) -> dict:
     """A config trained through the CLI entry point at batch 32 on the
-    card, then its states scored by KNN-MSE through both neighbour routes,
-    with the launch counts zeroed just before and read just after; then
-    its outputs are checked."""
+    card, then its states scored by KNN-MSE through both neighbour routes
+    and, for the ResNet runs (``model_kw``), one round of 8 concurrent
+    single frames served from the run, with the launch counts zeroed just
+    before and read just after; then its outputs are checked."""
 
     import torch
     from srl_zoo_tpu_torch import train as train_cli
+    from srl_zoo_tpu_torch.config import SRLConfig
     from srl_zoo_tpu_torch.data.device_cache import build_cache
     from srl_zoo_tpu_torch.data.schema import load_dataset
     from srl_zoo_tpu_torch.evaluation.knn import centre, knn_mse
     from srl_zoo_tpu_torch.evaluation.predict_dataset import predict_states
     from srl_zoo_tpu_torch.inference import StateEncoder
     from srl_zoo_tpu_torch.ops.knn_topk import knn_topk
+    from srl_zoo_tpu_torch.serve import build_server
     dataset = load_dataset(data_folder)
     gt = dataset.ground_truth_states
     # --- the training path, with the launch counts zeroed just before -----
     zero_counts(counters)
     t0 = time.perf_counter()
     train_cli.main(["--data-folder", data_folder, "--losses", *tokens,
-                    "--model-type", "custom_cnn", "--state-dim",
-                    str(STATE_DIM), "-bs", str(TRAIN_BATCH), "--epochs",
-                    str(epochs), "--log-folder", run_dir])
+                    *cli_flags(model_kw), "--state-dim", str(STATE_DIM),
+                    "-bs", str(TRAIN_BATCH), "--epochs", str(epochs),
+                    "--log-folder", run_dir])
     train_s = time.perf_counter() - t0
     states = np.load(os.path.join(run_dir, "states_rewards.npz"))["states"]
     score, queries, _ = knn_mse(states, gt, k=5, n_samples=KNN_QUERIES,
@@ -1303,6 +1511,22 @@ def run_training(data_folder: str, run_dir: str, dev, counters, name: str,
     q = refs[torch.from_numpy(queries).to(dev)]
     full_idx = knn_topk(q, refs, 6, impl="full")
     torch.cuda.synchronize()
+    cfg = SRLConfig.load(run_dir)
+    served = None
+    if model_kw:
+        server = build_server(run_dir, port=0, max_batch=32, coalesce_ms=5)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            served = serve_round(
+                f"http://127.0.0.1:{server.server_address[1]}",
+                list(stacked_frames(dataset, np.arange(8), cfg)))
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(30)
+        if thread.is_alive():
+            raise AssertionError("server thread did not stop")
     launches = read_counts(counters, f"{name} training path")
     # --- end of the training path -----------------------------------------
     log(f"{name}: train CLI ({epochs} epochs, export, GTC) in "
@@ -1329,12 +1553,26 @@ def run_training(data_folder: str, run_dir: str, dev, counters, name: str,
     encoder = StateEncoder.load(run_dir)
     # export batches of 256 and encode chunks of 32 take different cuDNN
     # algorithms: f32 rounding, relative to the states' scale
-    direct = encoder.encode(np.asarray(dataset.frames[:64]))
-    err = float(np.abs(states[:64] - direct).max() / np.abs(direct).max())
+    direct = encoder.encode(stacked_frames(dataset, np.arange(64), cfg))
+    scale = float(np.abs(direct).max())
+    err = float(np.abs(states[:64] - direct).max()) / scale
     if not err <= 1e-5:
         raise AssertionError(f"exported states differ from encode: {err} "
                              "of their largest magnitude")
-    store = build_cache(dataset, encoder.device)["frames"]
+    if served is not None:
+        replies, secs = served
+        got = np.stack([states_ for states_, _ in replies])
+        serve_err = float(np.abs(got - direct[:8]).max()) / scale
+        lat = sorted(ms for _, ms in replies)
+        log(f"{name}: serve, 8 concurrent single frames of "
+            f"{cfg.n_channels} channels in {secs * 1e3:.1f} ms (latency "
+            f"median {lat[len(lat) // 2]:.1f} max {lat[-1]:.1f} ms); "
+            f"replies vs direct encode max err {serve_err:.3g} of the "
+            "largest |state|")
+        if got.shape != (8, STATE_DIM) or not serve_err <= 1e-5:
+            raise AssertionError(f"{name}: served states differ from encode:"
+                                 f" {serve_err}")
+    store = build_cache(dataset, encoder.device, cfg.stack_views)
     predict_states(encoder, store)  # warm; returns host arrays (synced)
     t0 = time.perf_counter()
     predict_states(encoder, store)
@@ -1377,15 +1615,19 @@ def kernels_only(card: str, tree: str) -> int:
 
 
 def main(argv) -> int:
-    tree = None
+    tree = seeds = None
     if argv:
-        if len(argv) != 2 or argv[0] != "--pools-of":
-            print("usage: chip_smoke.py [--pools-of CHECKOUT]",
-                  file=sys.stderr)
+        if len(argv) != 2 or argv[0] not in ("--pools-of", "--step-seeds") \
+                or argv[0] == "--step-seeds" and not argv[1].isdigit():
+            print("usage: chip_smoke.py [--pools-of CHECKOUT | --step-seeds "
+                  "N]", file=sys.stderr)
             return 2
-        # that checkout's port package, kernels and build directory
-        tree = os.path.abspath(argv[1])
-        sys.path.insert(0, tree)
+        if argv[0] == "--step-seeds":
+            seeds = int(argv[1])
+        else:
+            # that checkout's port package, kernels and build directory
+            tree = os.path.abspath(argv[1])
+            sys.path.insert(0, tree)
     try:
         import torch
     except ImportError as e:
@@ -1410,6 +1652,13 @@ def main(argv) -> int:
         log(f"kernels built in {time.perf_counter() - t0:.1f} s")
         if tree is not None:
             return kernels_only(card, tree)
+        if seeds is not None:
+            from srl_zoo_tpu_torch.utils.device import (resolve_device,
+                                                        use_strict_float32)
+            use_strict_float32()
+            step_seeds(resolve_device(None), seeds)
+            print(card)
+            return 0
 
         from srl_zoo_tpu_torch.checkpoint import save_srl_model
         from srl_zoo_tpu_torch.config import SRLConfig
@@ -1438,6 +1687,7 @@ def main(argv) -> int:
         times = []
         stats = {"relu_max_pool": check_pool(dev, g, times)["export"],
                  "relu_max_pool_bwd": check_pool_bwd(dev, g, times)}
+        check_stem_pool(dev, g, times)
         check_pool_edges(dev, g)
         stats["gather_normalize"] = check_gather(store, dev, times)
         check_gather_edges(store, dev, g)
@@ -1467,16 +1717,19 @@ def main(argv) -> int:
             log(f"training dataset ({TRAIN_FRAMES} frames of "
                 f"{TRAIN_EPISODES} episodes) written in "
                 f"{time.perf_counter() - t0:.1f} s")
-            for name, tokens, epochs in TRAIN_CONFIGS:
+            for name, tokens, epochs, model_kw in TRAIN_CONFIGS:
                 t0 = time.perf_counter()
-                check_train_step_on_cpu(dev, name, tokens)
+                check_train_step_on_cpu(dev, name, tokens, model_kw)
                 training = run_training(f"{tmp}/data", f"{tmp}/{name}", dev,
-                                        counters, name, tokens, epochs)
+                                        counters, name, tokens, epochs,
+                                        model_kw)
                 launches = {k: launches[k] + training[k] for k in counters}
                 log(f"phase 4, {name} in {time.perf_counter() - t0:.1f} s")
-            t0 = time.perf_counter()
-            profile_training(dev, f"{tmp}/data")
-            log(f"training profile in {time.perf_counter() - t0:.1f} s")
+            for name, tokens, _, model_kw in TRAIN_CONFIGS[::4]:  # 1 and 5
+                t0 = time.perf_counter()
+                profile_training(dev, f"{tmp}/data", name, tokens, model_kw)
+                log(f"{name}: training profile in "
+                    f"{time.perf_counter() - t0:.1f} s")
     except Exception:
         traceback.print_exc()
         return 1

@@ -4,6 +4,7 @@
 ``batch_stats`` dicts (numpy leaves) onto :class:`SRLModules`:
 
     params/encoder/Conv_i/kernel          HWIO -> encoder.convs.i.weight OIHW
+                                             (CustomCNN)
     params/{encoder,decoder}/BatchNorm_i/scale,bias -> *.bns.i.weight,bias
     batch_stats/{encoder,decoder}/BatchNorm_i/mean,var
                                           -> *.bns.i.running_mean,var
@@ -16,10 +17,20 @@
     params/{forward,inverse,reward}_model/Dense_i/kernel,bias (in,out)
                                           -> *_model.layers.i.weight,bias
 
+A ResNet-18 encoder (models/resnet.py, torchvision's names) maps as
+
+    params/encoder/Conv_0, BatchNorm_0    -> encoder.conv1, encoder.bn1
+    params/encoder/BasicBlock_i/Conv_0, BatchNorm_0
+                              -> encoder.layer{i//2+1}.{i%2}.conv1, bn1
+    params/encoder/BasicBlock_i/Conv_1, BatchNorm_1   -> ...conv2, bn2
+    params/encoder/BasicBlock_i/Conv_2, BatchNorm_2   -> ...downsample.0, .1
+
+with the same kernel and BatchNorm conversions; the stem's kernel is one
+``Conv_0/kernel`` for either JAX stem ("direct" or "s2d").
 The VAE's encoder Dense_0 is 2 * state_dim wide (mu, then logvar).
 Subtrees the port does not run yet (the episode prior's
 ``discriminator``) come back as a list of skipped keys; runs of configs
-1-4 skip none. Convert a run folder in place:
+1-5 skip none. Convert a run folder in place:
 
     python -m srl_zoo_tpu_torch.bridge --log-folder logs/<run>
 
@@ -41,6 +52,7 @@ from srl_zoo_tpu_torch.config import SRLConfig
 from srl_zoo_tpu_torch.models.decoders import WIDTHS as DECODER_WIDTHS
 from srl_zoo_tpu_torch.models.decoders import deconv_weight_from_flax
 from srl_zoo_tpu_torch.models.encoders import KERNEL_SIZES
+from srl_zoo_tpu_torch.models.resnet import BLOCKS_PER_LAYER, WIDTHS
 
 _MSGPACK_NDARRAY = 1  # flax's ext type: packed (shape, dtype name, C bytes)
 HEADS = ("forward_model", "inverse_model", "reward_model")
@@ -78,11 +90,27 @@ def state_dict_from_jax(params: Dict, batch_stats: Dict
             raise KeyError(f"JAX weights lack '{key}'")
         return torch.from_numpy(np.array(flat.pop(key), np.float32))
 
+    def conv(dst: str, jax_name: str) -> None:
+        sd[f"{dst}.weight"] = take(
+            f"params/{jax_name}/kernel").permute(3, 2, 0, 1).contiguous()
+
     sd: Dict[str, torch.Tensor] = {}
-    for i in range(len(KERNEL_SIZES)):
-        sd[f"encoder.convs.{i}.weight"] = take(
-            f"params/encoder/Conv_{i}/kernel").permute(3, 2, 0, 1).contiguous()
-        _take_bn(sd, take, f"encoder.bns.{i}", f"encoder/BatchNorm_{i}")
+    if "params/encoder/BasicBlock_0/Conv_0/kernel" in flat:  # ResNet-18
+        conv("encoder.conv1", "encoder/Conv_0")
+        _take_bn(sd, take, "encoder.bn1", "encoder/BatchNorm_0")
+        for i in range(len(WIDTHS) * BLOCKS_PER_LAYER):
+            port = f"encoder.layer{i // BLOCKS_PER_LAYER + 1}." \
+                   f"{i % BLOCKS_PER_LAYER}"
+            src = f"encoder/BasicBlock_{i}"
+            for j, (c, bn) in enumerate((("conv1", "bn1"), ("conv2", "bn2"),
+                                         ("downsample.0", "downsample.1"))):
+                if j < 2 or f"params/{src}/Conv_{j}/kernel" in flat:
+                    conv(f"{port}.{c}", f"{src}/Conv_{j}")
+                    _take_bn(sd, take, f"{port}.{bn}", f"{src}/BatchNorm_{j}")
+    else:
+        for i in range(len(KERNEL_SIZES)):
+            conv(f"encoder.convs.{i}", f"encoder/Conv_{i}")
+            _take_bn(sd, take, f"encoder.bns.{i}", f"encoder/BatchNorm_{i}")
     sd["encoder.fc.weight"] = take("params/encoder/Dense_0/kernel").T.contiguous()
     sd["encoder.fc.bias"] = take("params/encoder/Dense_0/bias")
     if "params/decoder/Dense_0/kernel" in flat:

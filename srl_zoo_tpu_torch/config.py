@@ -33,15 +33,14 @@ NEXT_STATE_LOSSES = ("priors", "forward", "inverse", "reward")
 
 # where each model type that the port does not run waits (ROADMAP.md A)
 _PENDING_MODELS = {
-    "resnet": "ROADMAP.md queue A item 'Config 5' (ResNet-18)",
-    "mlp": "ROADMAP.md queue A item 'DenseEncoder / LinearEncoder'",
-    "linear": "ROADMAP.md queue A item 'DenseEncoder / LinearEncoder'",
+    "mlp": "ROADMAP.md queue A item 5 'DenseEncoder / LinearEncoder'",
+    "linear": "ROADMAP.md queue A item 5 'DenseEncoder / LinearEncoder'",
 }
 LOSS_ZOO_ITEM = ("ROADMAP.md queue A item 3 'the rest of the loss zoo' (dae, "
-                 "perceptual, triplet, episode-prior, reward-prior, "
-                 "supervised, random, --grad-accum, --path-to-dae)")
+                 "perceptual, episode-prior, reward-prior, supervised, "
+                 "random, --grad-accum, --path-to-dae)")
 TRAINABLE_LOSSES = ("autoencoder", "vae", "priors", "forward", "inverse",
-                    "reward")
+                    "reward", "triplet")
 
 
 def parse_loss_arguments(loss_args: List[str], state_dim: int
@@ -190,8 +189,6 @@ class SRLConfig:
                 f"{LOSS_ZOO_ITEM}")
         checks = (
             (self.grad_accum > 1, "--grad-accum > 1", LOSS_ZOO_ITEM),
-            (self.multi_view, "--multi-view",
-             "ROADMAP.md queue A item 4 'Config 5'"),
             (self.balanced_sampling, "--balanced-sampling",
              "ROADMAP.md queue A item 6 'Data'"),
             (self.device_cache not in ("auto", "on"),
@@ -202,8 +199,6 @@ class SRLConfig:
             (self.stream_overlap, "--stream-overlap",
              "ROADMAP.md queue A item 6 'Data' (streaming caches)"),
             (bool(self.path_to_dae), "--path-to-dae", LOSS_ZOO_ITEM),
-            (bool(self.pretrained_weights), "--pretrained-weights",
-             "ROADMAP.md queue A item 4 'Config 5'"),
         )
         for failed, what, item in checks:
             if failed:
@@ -282,10 +277,22 @@ class SRLConfig:
                     if n in RECONSTRUCTION_LOSSES)
 
     @property
+    def stack_views(self) -> bool:
+        """Whether the encoder's input stacks both camera views on the
+        channel axis: multi-view SRL without triplet, whose embedding net
+        runs per view instead."""
+        return self.multi_view and not self.use_triplet
+
+    @property
+    def needs_second_view(self) -> bool:
+        """Whether training reads the second view's frames (``frames_2``):
+        stacked into the input, or as the triplet's positive."""
+        return self.multi_view or self.use_triplet
+
+    @property
     def n_channels(self) -> int:
-        """Encoder input channels: two stacked views for multi-view SRL, but
-        3 for triplet, whose embedding net runs per view."""
-        return 6 if self.multi_view and not self.use_triplet else 3
+        """Encoder input channels: 6 when both views are stacked, else 3."""
+        return 6 if self.stack_views else 3
 
     @property
     def img_shape(self) -> Tuple[int, int, int]:

@@ -18,7 +18,10 @@ Each batch is ``{"indices", "valid", "actions", "reward_classes",
 ``priors`` a batch also carries the robotic priors' pairs
 (``same_action_partners`` / ``_mask``, ``dissimilar_partners`` / ``_mask``),
 drawn from the epoch's generator after its permutation, same-action pairs
-first, batch by batch, as the JAX loader draws them.
+first, batch by batch, as the JAX loader draws them. With ``triplet`` a
+batch carries ``neg_indices``, the triplet's negative rows, drawn from the
+loader's own indices (the JAX loader's default pool) before the priors'
+pairs, as the JAX loader draws them.
 """
 
 from __future__ import annotations
@@ -34,7 +37,8 @@ from srl_zoo_tpu_torch.data.schema import Dataset
 class DataLoader:
     def __init__(self, dataset: Dataset, indices: np.ndarray,
                  batch_size: int, shuffle: bool = True, seed: int = 0,
-                 wraparound: bool = True, priors: bool = False):
+                 wraparound: bool = True, priors: bool = False,
+                 triplet: bool = False):
         self.ds = dataset
         self.indices = np.asarray(indices, np.int32)
         self.batch_size = batch_size
@@ -42,6 +46,7 @@ class DataLoader:
         self.seed = seed
         self.wraparound = wraparound
         self.priors = priors
+        self.triplet = triplet
         # epochs iterated so far; a resumed run sets it to its start epoch
         self.epoch = 0
 
@@ -58,6 +63,9 @@ class DataLoader:
                  "actions": ds.actions[idx],
                  "reward_classes": ds.reward_classes[nxt],
                  "rewards": ds.rewards[nxt]}
+        if self.triplet:
+            batch["neg_indices"] = samplers.triplet_negatives(
+                idx, ds.episode_ids, self.indices, rng)
         if self.priors:
             (batch["same_action_partners"],
              batch["same_action_mask"]) = samplers.find_same_action_pairs(

@@ -1,9 +1,10 @@
-"""Pair samplers of the robotic priors (a copy of three functions of
-``srl_zoo_tpu/data/samplers.py``), host-side in numpy.
+"""Pair samplers of the robotic priors and the triplet's negatives (a copy
+of four functions of ``srl_zoo_tpu/data/samplers.py``), host-side in
+numpy.
 
 Each minibatch row gets one partner index and a 0/1 mask (0: no partner
-exists, the pair counts for nothing), drawn from the loader's
-``RandomState`` so that both packages draw the same pairs for a seed.
+exists, the pair counts for nothing), or one negative row, drawn from the
+loader's ``RandomState`` so that both packages draw the same for a seed.
 """
 
 from __future__ import annotations
@@ -44,3 +45,26 @@ def find_dissimilar_pairs(actions: np.ndarray, reward_classes: np.ndarray,
     allowed = (a[:, None] == a[None, :]) & (r[:, None] != r[None, :])
     np.fill_diagonal(allowed, False)
     return _sample_true_per_row(allowed, rng)
+
+
+def triplet_negatives(indices: np.ndarray, episode_ids_all: np.ndarray,
+                      pool: np.ndarray, rng: np.random.RandomState,
+                      min_gap: int = 10) -> np.ndarray:
+    """A negative dataset row for each anchor row, drawn from ``pool``: a
+    frame of another episode or at least ``min_gap`` steps away, redrawn up
+    to 20 times (the anchor is view 1, the positive view 2 of the same
+    frame)."""
+    idx = np.asarray(indices)
+    pool = np.asarray(pool)
+    b = len(idx)
+    negs = pool[rng.randint(len(pool), size=b)]
+    for _ in range(20):
+        bad = ((episode_ids_all[negs] == episode_ids_all[idx])
+               & (np.abs(negs.astype(np.int64) - idx.astype(np.int64))
+                  < min_gap))
+        if not bad.any():
+            break
+        resample = pool[rng.randint(len(pool), size=int(bad.sum()))]
+        negs = negs.copy()
+        negs[bad] = resample
+    return negs.astype(np.int32)

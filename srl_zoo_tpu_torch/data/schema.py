@@ -3,8 +3,9 @@
 A dataset folder holds ``preprocessed_data.npz`` (actions, rewards,
 episode_starts), ``ground_truth.npz`` (ground_truth_states, images_path)
 and, for the device-resident path, the ``frames.npy`` (N, H, W, C) uint8
-decode cache. This port reads frames only from that cache: JPEG decode
-(cv2) waits for a later slice.
+decode cache; a two-camera dataset (multi-view, triplet) holds the second
+view's in ``frames_2.npy``. This port reads frames only from those caches:
+JPEG decode (cv2) waits for a later slice.
 
 Reward convention: ``rewards[t]`` is the reward upon ARRIVING at frame t,
 so transition t = (frame t, action t, frame t+1) reads ``rewards[t + 1]``.
@@ -37,6 +38,8 @@ class Dataset:
     episode_starts: Optional[np.ndarray] = None
     # (N,) int32 discretized rewards; None derives them from ``rewards``
     reward_classes: Optional[np.ndarray] = None
+    # the second camera view, (N, H, W, C) uint8 memmap
+    frames_2: Optional[np.ndarray] = None
 
     def __post_init__(self):
         if self.episode_starts is None:
@@ -56,6 +59,11 @@ class Dataset:
     @property
     def n_reward_classes(self) -> int:
         return int(self.reward_classes.max()) + 1
+
+    @property
+    def episode_ids(self) -> np.ndarray:
+        """(N,) int32 episode index of each row, from episode_starts."""
+        return np.cumsum(self.episode_starts.astype(np.int32)) - 1
 
     def training_indices(self) -> np.ndarray:
         """Rows i for which (i, i+1) is a within-episode transition: the
@@ -99,12 +107,14 @@ def load_dataset(data_folder: str) -> Dataset:
         if len(arr) != n:
             raise ValueError(f"Dataset field '{name}' has length {len(arr)}, "
                              f"expected {n} (actions)")
-    fpath = os.path.join(data_folder, "frames.npy")
-    frames = _load_frames_checked(fpath, n) if os.path.exists(fpath) else None
+    frames = {}
+    for name in ("frames", "frames_2"):
+        fpath = os.path.join(data_folder, f"{name}.npy")
+        frames[name] = _load_frames_checked(fpath, n) \
+            if os.path.exists(fpath) else None
     return Dataset(data_folder=data_folder, actions=actions, rewards=rewards,
-                   ground_truth_states=gts, frames=frames,
-                   episode_starts=episode_starts,
-                   reward_classes=discretize_rewards(rewards))
+                   ground_truth_states=gts, episode_starts=episode_starts,
+                   reward_classes=discretize_rewards(rewards), **frames)
 
 
 def save_states_rewards(log_folder: str, states: np.ndarray,

@@ -2,7 +2,8 @@
 
 Port of ``srl_zoo_tpu/evaluation/predict_dataset.py`` and the learner's
 ``predict_states``: index batches into the resident uint8 store go through
-the gather kernel (gather + normalize) and the encoder; the states are
+the gather kernel (gather + normalize; one gather per camera view where the
+config stacks both, as training does) and the encoder; the states are
 written to ``states_rewards.npz``, the hand-off artifact for downstream RL.
 
     python -m srl_zoo_tpu_torch.evaluation.predict_dataset \\
@@ -12,24 +13,24 @@ written to ``states_rewards.npz``, the hand-off artifact for downstream RL.
 from __future__ import annotations
 
 import argparse
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from srl_zoo_tpu_torch.data.device_cache import build_cache
+from srl_zoo_tpu_torch.data.device_cache import build_cache, gather_obs
 from srl_zoo_tpu_torch.data.schema import load_dataset, save_states_rewards
 from srl_zoo_tpu_torch.inference import StateEncoder
-from srl_zoo_tpu_torch.ops.gather_norm import gather_normalize
 
 
 BATCH = 256  # rows per export batch
 
 
-def predict_states(encoder: StateEncoder, frames: torch.Tensor,
+def predict_states(encoder: StateEncoder, store: Dict[str, torch.Tensor],
                    indices: Optional[np.ndarray] = None) -> np.ndarray:
     """(len(indices), state_dim) float32 states of rows of the resident
-    store ``frames`` (all rows when ``indices`` is None)."""
+    store (data/device_cache.py; all rows when ``indices`` is None)."""
+    frames = store["frames"]
     if frames.device != encoder.device:
         raise ValueError(f"frame store on {frames.device}, encoder on "
                          f"{encoder.device}")
@@ -41,8 +42,7 @@ def predict_states(encoder: StateEncoder, frames: torch.Tensor,
     out = []
     with torch.inference_mode():
         for start in range(0, len(idx), BATCH):
-            x = gather_normalize(frames, idx[start:start + BATCH],
-                                 encoder.cfg.normalize_mode)
+            x = gather_obs(store, idx[start:start + BATCH], encoder.cfg)
             out.append(encoder.model.encode(x))
     if not out:
         return np.zeros((0, encoder.cfg.state_dim), np.float32)
@@ -62,14 +62,12 @@ def main(argv=None) -> str:
     args = p.parse_args(argv)
 
     encoder = StateEncoder.load(args.log_folder, device=args.device)
-    if encoder.cfg.multi_view:
-        raise NotImplementedError("multi-view export is not ported yet")
     dataset = load_dataset(args.data_folder or encoder.cfg.data_folder)
-    cache = build_cache(dataset, encoder.device)
+    store = build_cache(dataset, encoder.device, encoder.cfg.stack_views)
     indices = None
     if args.n_samples > 0:
         indices = np.arange(min(args.n_samples, dataset.n_samples))
-    states = predict_states(encoder, cache["frames"], indices)
+    states = predict_states(encoder, store, indices)
     rewards = dataset.rewards if indices is None else dataset.rewards[indices]
     path = save_states_rewards(args.log_folder, states, rewards)
     print(f"Saved {path} ({states.shape})")

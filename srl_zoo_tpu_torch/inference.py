@@ -8,8 +8,11 @@ that downstream RL calls per observation:
 
 Each chunk of at most ``max_batch`` rows is uploaded as uint8 and
 normalized on the device by the gather kernel (identity index), then
-encoded. Eager PyTorch does not recompile per batch size, so nothing is
-padded to ``max_batch``.
+encoded. A run whose encoder stacks both camera views takes (H, W, 6)
+observations, view 1's channels first; the chunk goes through the kernel
+as one upload of 6-channel frames, on its vector path where a frame is a
+whole number of 4-byte groups (224 x 224 x 6 is). Eager PyTorch does not
+recompile per batch size, so nothing is padded to ``max_batch``.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Loss functions (port of ``srl_zoo_tpu/losses/functions.py``) for the
 objectives the port trains: the autoencoder's pixel MSE, the beta-VAE, the
-four robotic priors, the forward / inverse / reward heads, and the l1/l2
-parameter regularizers. The reductions are the JAX package's: a mean over
+four robotic priors, the forward / inverse / reward heads, the triplet
+loss, and the l1/l2 parameter regularizers. The reductions are the JAX package's: a mean over
 each sample's elements, then a mean over the valid rows of the batch; the
 pair terms of the priors average over their valid pairs.
 """
@@ -139,6 +139,19 @@ def reward_model_loss(logits: torch.Tensor, reward_classes: torch.Tensor,
                       valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Cross-entropy over the reward classes (reference: rewardModelLoss)."""
     return _cross_entropy(logits, reward_classes, valid)
+
+
+def triplet_loss(anchor: torch.Tensor, positive: torch.Tensor,
+                 negative: torch.Tensor, margin: float = 1.0,
+                 valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """max(0, d(a, p) - d(a, n) + margin) with euclidean d, whose gradient
+    stays finite where a == p (reference: tripletLoss; the anchor and the
+    positive are two camera views of one frame, the negative a distant
+    frame)."""
+    a = _f32(anchor)
+    d_pos = _safe_norm(a - _f32(positive))
+    d_neg = _safe_norm(a - _f32(negative))
+    return _batch_mean(torch.clamp_min(d_pos - d_neg + margin, 0.0), valid)
 
 
 def l1_regularization(params: Iterable[torch.Tensor]) -> torch.Tensor:

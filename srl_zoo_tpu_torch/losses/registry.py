@@ -1,7 +1,7 @@
 """Weighted loss assembly (port of ``srl_zoo_tpu/losses/registry.py``
 ``compute_total_loss`` / ``recompose_epoch_means``) for the losses the
-port trains: autoencoder, vae, priors, forward, inverse, reward and the
-l1/l2 regularizers. Each loss reads its SRL-splits slice of the state.
+port trains: autoencoder, vae, priors, forward, inverse, reward, triplet
+and the l1/l2 regularizers. Each loss reads its SRL-splits slice of the state.
 
 ``compute_total_loss`` returns ``(total, metrics)``; ``metrics`` holds each
 term, ``total``, ``_n_valid`` (the batch's valid-row count, by which the
@@ -73,6 +73,14 @@ def compute_total_loss(cfg: SRLConfig, outputs: Dict[str, torch.Tensor],
     if "reward" in weights:
         add("reward", F.reward_model_loss(outputs["reward_logits"],
                                           batch["reward_classes"], valid))
+    if "triplet" in weights:
+        sl = slices["triplet"]
+        # the anchor is mu, as the positive and negative are: a VAE's
+        # sample would put noise on one branch of each distance
+        add("triplet", F.triplet_loss(_sl(outputs["mu"], sl),
+                                      _sl(outputs["pos_state"], sl),
+                                      _sl(outputs["neg_state"], sl),
+                                      valid=valid))
     if cfg.l1_reg > 0 or cfg.l2_reg > 0:
         params = list(params)
     if cfg.l1_reg > 0:

@@ -1,4 +1,8 @@
-"""CustomCNN encoder (port of ``srl_zoo_tpu/models/encoders.py`` CustomCNN).
+"""Image encoders (port of ``srl_zoo_tpu/models/encoders.py``): CustomCNN
+and the ``make_encoder`` factory of ``--model-type`` (custom_cnn, resnet;
+ResNet-18 is in models/resnet.py).
+
+CustomCNN:
 
 Three blocks of [conv 64, kernel 7/3/3, stride 2, no bias -> BatchNorm
 (flax momentum ``bn_momentum``) -> relu + 3x3/2 max-pool], flatten, Dense
@@ -20,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from srl_zoo_tpu_torch.models.batchnorm import BatchNorm
+from srl_zoo_tpu_torch.models.resnet import ResNet18
 from srl_zoo_tpu_torch.ops.fused_pool import relu_max_pool, same_pads
 
 KERNEL_SIZES = (7, 3, 3)
@@ -59,3 +64,16 @@ class CustomCNN(nn.Module):
             y = relu_max_pool(x.permute(0, 2, 3, 1).contiguous())
             x = y.permute(0, 3, 1, 2)
         return self.fc(y.reshape(y.shape[0], -1))
+
+
+def make_encoder(model_type: str, state_dim: int, in_channels: int,
+                 img_height: int, img_width: int,
+                 bn_momentum: float = 0.9) -> nn.Module:
+    """The encoder of a ``--model-type``: NHWC frames -> (B, state_dim).
+    SRLConfig refuses the types that are not ported yet."""
+    if model_type == "custom_cnn":
+        return CustomCNN(state_dim, in_channels, img_height, img_width,
+                         bn_momentum)
+    if model_type == "resnet":
+        return ResNet18(state_dim, in_channels, bn_momentum)
+    raise ValueError(f"Unknown model type: {model_type}")

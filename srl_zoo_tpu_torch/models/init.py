@@ -12,7 +12,9 @@ first step. The JAX package's layers use flax's defaults:
 
 fan_in is the kernel's receptive field times its input features: k*k*in
 for a convolution and for flax's ConvTranspose (kernel (k, k, in, out)),
-``in`` for a Dense layer.
+``in`` for a Dense layer. The ResNet-18 encoder takes the same: its stem
+kernel is ``lecun_normal`` explicitly in the JAX module, and its block
+convolutions and ``fc`` are flax's default Conv and Dense.
 """
 
 from __future__ import annotations

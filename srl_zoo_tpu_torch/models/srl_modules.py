@@ -8,7 +8,14 @@ and returns every output the active losses read: ``state``, ``mu``
 (``logvar`` with the VAE), ``next_state``, ``recon`` (the decoder's
 reconstruction of the reconstruction losses' slice) and the heads'
 ``forward_pred``, ``inverse_logits`` and ``reward_logits``, each head on
-its own slice of ``state`` and ``next_state``.
+its own slice of ``state`` and ``next_state``. With the triplet loss it
+also encodes the positive (the second camera view of the same frame) and
+the negative (a distant frame) into ``pos_state`` and ``neg_state``: mu,
+never sampled.
+
+The encoder passes run in the JAX module's order: obs, next obs, positive,
+negative. In train mode each pass folds its batch statistics into
+BatchNorm's running averages, so the order decides the exported states.
 
 In train mode the VAE samples ``z = mu + exp(logvar / 2) * eps`` on its
 slice only; the other slices stay ``mu``. ``eps`` comes in through
@@ -27,7 +34,7 @@ from torch import nn
 
 from srl_zoo_tpu_torch.config import SRLConfig
 from srl_zoo_tpu_torch.models.decoders import CNNDecoder
-from srl_zoo_tpu_torch.models.encoders import CustomCNN
+from srl_zoo_tpu_torch.models.encoders import make_encoder
 from srl_zoo_tpu_torch.models.heads import (ForwardModel, InverseModel,
                                             RewardModel)
 
@@ -43,8 +50,9 @@ class SRLModules(nn.Module):
         super().__init__()
         self.cfg = cfg
         out_dim = 2 * cfg.state_dim if cfg.use_vae else cfg.state_dim
-        self.encoder = CustomCNN(out_dim, cfg.n_channels, cfg.img_height,
-                                 cfg.img_width, cfg.bn_momentum)
+        self.encoder = make_encoder(cfg.model_type, out_dim, cfg.n_channels,
+                                    cfg.img_height, cfg.img_width,
+                                    cfg.bn_momentum)
         slices = cfg.slices
         if cfg.use_decoder:
             self.recon_slice = cfg.recon_slice
@@ -89,11 +97,13 @@ class SRLModules(nn.Module):
     def forward(self, obs: torch.Tensor,
                 next_obs: Optional[torch.Tensor] = None,
                 actions: Optional[torch.Tensor] = None,
-                noise: Optional[Dict[str, torch.Tensor]] = None
+                noise: Optional[Dict[str, torch.Tensor]] = None,
+                pos_obs: Optional[torch.Tensor] = None,
+                neg_obs: Optional[torch.Tensor] = None
                 ) -> Dict[str, torch.Tensor]:
         """Normalized float (B, H, W, C) frames -> the outputs the losses
         read; ``recon`` is (B, H, W, C), the NHWC view of the decoder's
-        output."""
+        output. ``pos_obs`` and ``neg_obs`` are the triplet's frames."""
         cfg = self.cfg
         noise = noise or {}
         mu, logvar = self._encode_raw(obs)
@@ -118,4 +128,7 @@ class SRLModules(nn.Module):
                 out[f"{name}_logits"] = getattr(self, head)(
                     slice_state(state, sl),
                     slice_state(out["next_state"], sl))
+        if cfg.use_triplet:
+            out["pos_state"] = self._encode_raw(pos_obs)[0]
+            out["neg_state"] = self._encode_raw(neg_obs)[0]
         return out

@@ -12,8 +12,12 @@ dataset) and ``gtc.txt``. It runs on CUDA unless ``--device cpu`` is
 given; without a GPU it raises. The plots of the JAX CLI (``states.png``,
 ``correlation.png``) are not written yet (ROADMAP.md queue A item 7).
 It trains the losses autoencoder, vae (``--beta``), priors, forward,
-inverse and reward (``--inverse-model-type``), alone or as SRL splits
-(``name:weight:split_dim``). Flags of features the port does not run yet
+inverse, reward (``--inverse-model-type``) and triplet, alone or as SRL
+splits (``name:weight:split_dim``), with the custom_cnn or the resnet
+(ResNet-18, ``--pretrained-weights`` from a torchvision state dict)
+encoder; ``--multi-view`` reads a two-camera dataset (``frames_2.npy``):
+triplet takes the second view as its positive, any other loss stacks
+both views into a 6-channel input. Flags of features the port does not run yet
 raise NotImplementedError naming their ROADMAP.md item.
 """
 

@@ -8,9 +8,10 @@ averaged over valid rows, a masked validation pass in eval mode, the
 best-validation weights kept as on-device copies and exported to
 ``srl_model.pth``, the loss history and a resume checkpoint per epoch. One
 ``torch.Generator`` on the device, seeded with the config's seed, draws
-the VAE's noise; the resume checkpoint keeps its state.
-``predict_states`` encodes a dataset through
-``evaluation/predict_dataset.py``.
+the VAE's noise; the resume checkpoint keeps its state. With
+``--pretrained-weights`` a torchvision ResNet-18 state dict goes into the
+encoder before training (models/torch_port.py). ``predict_states`` encodes
+a dataset through ``evaluation/predict_dataset.py``.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from srl_zoo_tpu_torch.data.loader import DataLoader
 from srl_zoo_tpu_torch.data.schema import Dataset
 from srl_zoo_tpu_torch.evaluation import predict_dataset
 from srl_zoo_tpu_torch.inference import StateEncoder
+from srl_zoo_tpu_torch.models.torch_port import load_ported_resnet18
 from srl_zoo_tpu_torch.losses.registry import recompose_epoch_means
 from srl_zoo_tpu_torch.training.metrics import MetricsLogger
 from srl_zoo_tpu_torch.training.state import make_model, make_optimizer
@@ -89,24 +91,41 @@ class SRL4robotics:
         use_strict_float32()
         set_global_seeds(cfg.seed)
         self.model = make_model(cfg, self.device)
+        if cfg.pretrained_weights:
+            self._load_pretrained_encoder(cfg.pretrained_weights)
         self.optimizer = make_optimizer(cfg, self.model)
         self.generator = torch.Generator(device=self.device).manual_seed(
             cfg.seed)
-        self._frames = None
-        self._frames_of = None
+        self._cache = None
+        self._cache_of = None
         n_params = sum(p.numel() for p in self.model.parameters())
         printGreen(f"Model: {cfg.model_type}, {n_params / 1e6:.2f}M params, "
                    f"on {self.device}, compute dtype {cfg.compute_dtype}")
 
-    def _store(self, dataset: Dataset) -> torch.Tensor:
-        """The dataset's uint8 frame store on the device, uploaded once.
-        A store that does not fit raises (streaming is not ported)."""
-        if self._frames_of is not dataset:
-            self._frames = build_cache(dataset, self.device)["frames"]
-            self._frames_of = dataset
-            printGreen(f"Caching dataset on {self.device} "
-                       f"({self._frames.numel() / 2**20:.0f} MiB)")
-        return self._frames
+    def _load_pretrained_encoder(self, path: str) -> None:
+        """torchvision ResNet-18 weights into the encoder; its fc head
+        keeps its fresh init, as the reference replaces fc too."""
+        if self.cfg.model_type != "resnet":
+            raise ValueError("--pretrained-weights supports --model-type "
+                             "resnet only")
+        missing, unexpected = self.model.encoder.load_state_dict(
+            load_ported_resnet18(path), strict=False)
+        if unexpected or set(missing) != {"fc.weight", "fc.bias"}:
+            raise ValueError(f"{path} is not a ResNet-18 state dict: "
+                             f"missing {missing}, unexpected {unexpected}")
+        printGreen(f"Loaded pretrained ResNet-18 weights from {path}")
+
+    def _store(self, dataset: Dataset) -> Dict[str, torch.Tensor]:
+        """The dataset's uint8 frame store on the device (both camera views
+        where the config reads the second), uploaded once. A store that
+        does not fit raises (streaming is not ported)."""
+        if self._cache_of is not dataset:
+            self._cache = build_cache(dataset, self.device,
+                                      self.cfg.needs_second_view)
+            self._cache_of = dataset
+            mib = sum(t.numel() for t in self._cache.values()) / 2**20
+            printGreen(f"Caching dataset on {self.device} ({mib:.0f} MiB)")
+        return self._cache
 
     # ---- training ----------------------------------------------------------
     def learn(self, dataset: Dataset, resume: bool = False,
@@ -119,14 +138,15 @@ class SRL4robotics:
         printGreen(f"{len(train_idx)} training / {len(val_idx)} validation "
                    f"samples, batch size {cfg.batch_size}")
         logger = MetricsLogger(self.log_folder)
-        frames = self._store(dataset)
+        store = self._store(dataset)
+        pairs = {"priors": cfg.use_priors, "triplet": cfg.use_triplet}
         train_loader = DataLoader(dataset, train_idx, cfg.batch_size,
                                   shuffle=True, seed=cfg.seed,
-                                  wraparound=True, priors=cfg.use_priors)
+                                  wraparound=True, **pairs)
         # padded + masked, so val metrics are exact per-sample means
         val_loader = DataLoader(dataset, val_idx, cfg.batch_size,
                                 shuffle=False, seed=cfg.seed,
-                                wraparound=False, priors=cfg.use_priors) \
+                                wraparound=False, **pairs) \
             if len(val_idx) else None
 
         start_epoch, step, best_val = 0, 0, float("inf")
@@ -151,13 +171,13 @@ class SRL4robotics:
                 t_epoch = time.time()
                 acc, n_images = [], 0
                 for batch in train_loader:
-                    acc.append(train_step(self.model, self.optimizer, frames,
+                    acc.append(train_step(self.model, self.optimizer, store,
                                           batch, self.generator))
                     step += 1
                     n_images += int(batch["valid"].sum())
                 train_metrics = mean_metrics(acc, cfg)
                 ips = n_images / max(time.time() - t_epoch, 1e-9)
-                val_metrics = self._run_eval(val_loader, frames) \
+                val_metrics = self._run_eval(val_loader, store) \
                     if val_loader is not None else train_metrics
 
                 logger.log_epoch(epoch, train_metrics, val_metrics)
@@ -203,15 +223,15 @@ class SRL4robotics:
             # a finished run resumed: evaluate the exported weights once
             loader = val_loader or DataLoader(
                 dataset, train_idx, cfg.batch_size, shuffle=False,
-                seed=cfg.seed, wraparound=False, priors=cfg.use_priors)
-            val_metrics = self._run_eval(loader, frames)
+                seed=cfg.seed, wraparound=False, **pairs)
+            val_metrics = self._run_eval(loader, store)
         printGreen(f"Best validation loss: {best_val:.4f}")
         return val_metrics
 
-    def _run_eval(self, loader: DataLoader, frames: torch.Tensor
+    def _run_eval(self, loader: DataLoader, store: Dict[str, torch.Tensor]
                   ) -> Dict[str, float]:
         """One masked-exact eval pass."""
-        return mean_metrics([eval_step(self.model, frames, batch)
+        return mean_metrics([eval_step(self.model, store, batch)
                              for batch in loader], self.cfg)
 
     # ---- inference / export ------------------------------------------------
