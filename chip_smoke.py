@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's inference and training paths on one
-NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's inference, training and pipeline paths on
+one NVIDIA GPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --pools-of CHECKOUT
@@ -79,9 +79,15 @@ prints its wall time:
    stem's relative L2, the CPU at the larger of two orders of summation,
    all cores and one thread). A two-camera 4,096-frame 224x224x3 dataset
    folder with structure is written (the second view mirrored, in other
-   colours), and the train CLI (``srl_zoo_tpu_torch.train.main``) trains
-   each config on it (config 1 for 3 epochs, the others for 2), exports
-   its states and scores GTC; KNN-MSE of
+   colours; view 1 also as the JPEGs ``images_path`` names), and the
+   train CLI (``srl_zoo_tpu_torch.train.main``) trains each config on it
+   (config 1 for 3 epochs with ``--plot-every 1``, the others for 2),
+   checkpointing through ``AsyncCheckpointer`` (the main thread's seconds
+   inside its calls are printed per epoch), exports its states, scores
+   GTC and plots ``states.png`` and ``correlation.png`` (config 1 also
+   ``plots/epoch_<e>.png``, ``latest.png`` and ``live.html``, and its
+   ``checkpoints/state_latest.pth`` must load at the run's epoch and
+   step); KNN-MSE of
    the exported states is then scored through both neighbour routes (K3
    and K4), and the server answers one round of 8 concurrent frames from
    each ResNet run. Launch counts are zeroed just before and read just
@@ -91,9 +97,25 @@ prints its wall time:
    two routes' scores must agree (1e-6); train images/s and export
    states/s are printed. Then each pool's input must be channels_last
    (the pool reads it in place), and 8 train steps each of configs 1 and
-   5 are profiled (device time by kernel, busy share, layout transposes
-   and the operations that launch them).
-5. A ``{"kernels": [...]}`` line (launches summed over all the paths;
+   5 are profiled after one more step in the profiler's warm-up (device
+   time by kernel, busy share, layout transposes and the operations that
+   launch them); the window must hold every K2 launch of its 8 steps.
+5. The pipeline at full width: BASELINE config 5 (triplet, ResNet-18,
+   ``--multi-view``, 224x224x3, state_dim 200, batch 32, 2 epochs, seeds
+   1 and 2) through ``srl_zoo_tpu_torch.pipeline.main`` on phase 4's
+   dataset: training, KNN-MSE of all 4,096 states with three neighbour
+   grids (``knn_images``), the reward probe and the report. Launch counts
+   are zeroed just before and read just after; K1f, K1b, K2 and K3 must
+   have run, the pools and the gather on their vector path. Each seed's
+   KNN-MSE must equal a direct ``knn_mse`` of its states (1e-6), the
+   report must hold both seeds' mean and std of KNN-MSE, GTC
+   (``gtc.txt``) and reward accuracy (in [0, 1]), and the grids,
+   ``knn_mse.json`` and ``reward_accuracy.json`` must be written; wall
+   time, images/s and the scores are printed. Then ``enjoy_latent`` on
+   config 1's run (8 dims x 7 steps at 224 px): ``latent_sweeps.png``,
+   and the sweep's middle column within 1e-5 (of its largest value) of a
+   direct decode of the mean state.
+6. A ``{"kernels": [...]}`` line (launches summed over all the paths;
    every kernel with ``device_ms``, the kernel alone, beside ``ms``, the
    wrapper), the nvidia-smi line, and last ``{"ok": true, "device":
    {...}}``.
@@ -125,6 +147,7 @@ from __future__ import annotations
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -170,6 +193,12 @@ TRAIN_CONFIGS = (
 )
 INFERENCE_KERNELS = ("relu_max_pool", "gather_normalize", "knn_topk",
                      "pairwise_sqdist")
+# phase 5: BASELINE config 5 through the pipeline, at two seeds (epochs
+# cut from 30, as in phase 4)
+PIPELINE_SEEDS = (1, 2)
+PIPELINE_EPOCHS = 2
+PIPELINE_KERNELS = ("relu_max_pool", "relu_max_pool_bwd", "gather_normalize",
+                    "knn_topk")
 TRAINING_KERNELS = ("relu_max_pool", "relu_max_pool_bwd", "gather_normalize",
                     "knn_topk", "pairwise_sqdist")
 
@@ -708,12 +737,15 @@ def check_no_sync(store, dev) -> None:
     ``eval_step`` (inputs, forward, loss, backward, Adam) of configs 1
     (autoencoder), 3 (priors: the next frames and the pairs' metadata)
     and 5 (triplet, ResNet-18: the second view's positives and the
-    negatives, each view's store here the same tensor) at batch 32,
+    negatives, each view's store here the same tensor) at batch 32, and
+    config 5's checkpoint submits (``AsyncCheckpointer.save_model`` and
+    ``save_state``; the worker's host copies wait until the mode is off),
     complete without a synchronise. The mode is first shown to catch one
     (a pageable upload); each call runs once before, outside the mode, for
     its first-use work (the build, the pinned-memory pool, cuDNN's plans,
     Adam's state)."""
     import torch
+    from srl_zoo_tpu_torch import checkpoint as ckpt
     from srl_zoo_tpu_torch.evaluation.predict_dataset import BATCH
     from srl_zoo_tpu_torch.ops.gather_norm import gather_normalize
     from srl_zoo_tpu_torch.training.state import make_model, make_optimizer
@@ -734,9 +766,50 @@ def check_no_sync(store, dev) -> None:
                       b=batch: train_step(m, o, views, b, gen)))
         calls.append((f"eval_step of {name}", lambda m=model, b=batch:
                       eval_step(m, views, b)))
-    for _, call in calls:
-        call()
+    # the worker's writes wait for ``quiet``: set while the mode is off
+    quiet, writers = threading.Event(), []
+    real = {f: getattr(ckpt, f) for f in ("write_train_state",
+                                          "write_state_dict")}
+
+    def gated(fn):
+        def write(*args):
+            if not quiet.wait(60):
+                raise TimeoutError("the sync check never ended")
+            return fn(*args)
+        return write
+
+    def submits(m=model, o=opt):
+        writers.append(ckpt.AsyncCheckpointer(tmp, dev))
+        writers[-1].save_model(m, m.state_dict())
+        writers[-1].save_state(m, o, gen, 1, 1, 0.5)
+    calls.append((f"checkpoint submits of {name}", submits))
+    tmp = tempfile.mkdtemp()
+    for f, fn in real.items():
+        setattr(ckpt, f, gated(fn))
+    try:
+        quiet.set()
+        for _, call in calls:
+            call()
+        writers.pop().close()
+        torch.cuda.synchronize()
+        quiet.clear()
+        _check_no_sync(calls, dev)
+    finally:
+        quiet.set()
+        for f, fn in real.items():
+            setattr(ckpt, f, fn)
+        for w in writers:
+            w.close()
+        shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.synchronize()
+    log(f"no synchronise under set_sync_debug_mode('error') (which catches "
+        f"a pageable upload): {', '.join(name for name, _ in calls)}")
+
+
+def _check_no_sync(calls, dev) -> None:
+    """Each of ``calls`` under ``set_sync_debug_mode("error")``, after
+    showing that the mode catches a pageable upload."""
+    import torch
     torch.cuda.set_sync_debug_mode("error")
     try:
         try:
@@ -753,9 +826,6 @@ def check_no_sync(store, dev) -> None:
                 raise AssertionError(f"{name} synchronised: {e}") from e
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    log(f"no synchronise under set_sync_debug_mode('error') (which catches "
-        f"a pageable upload): {', '.join(name for name, _ in calls)}")
 
 
 def near_tie_mismatches(q, refs, ki, pi, rtol: float) -> int:
@@ -1169,7 +1239,10 @@ def write_train_dataset(folder: str) -> None:
     and its centre (scaled to [0, 1]) is the ground truth; a reward of 1
     near the middle. The second view (``frames_2.npy``) is the scene
     mirrored left to right in other colours, as the JAX package's
-    synthetic two-view datasets are."""
+    synthetic two-view datasets are. View 1's frames are also written as
+    the JPEGs that ``images_path`` names (cv2), which the KNN-MSE
+    neighbour grids decode."""
+    import cv2
     rng = np.random.RandomState(SEED)
     n, (h, w, c) = TRAIN_FRAMES, IMG
     ep_len = n // TRAIN_EPISODES
@@ -1208,6 +1281,11 @@ def write_train_dataset(folder: str) -> None:
             block[:] = shade[None, :, :, None]
             block[sq] = colour
             frames[s:s + 256] = block
+            if name == "frames":
+                for i, frame in enumerate(block, s):
+                    if not cv2.imwrite(os.path.join(
+                            folder, f"frame{i:06d}.jpg"), frame[..., ::-1]):
+                        raise OSError(f"could not write frame {i}")
         frames.flush()
         del frames
 
@@ -1379,9 +1457,12 @@ def profile_training(dev, data_folder: str, name: str, tokens,
                      model_kw) -> None:
     """Device time by kernel, and the device's busy share, over
     PROFILE_STEPS train steps of a config at batch 32 (torch.profiler),
-    and the layout transposes among them (channels_last keeps them out)."""
+    and the layout transposes among them (channels_last keeps them out).
+    One more step runs under the profiler's warm-up before the window
+    opens (records at the start of a trace are lost), and the window must
+    hold every gather (K2) of its steps."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     from srl_zoo_tpu_torch.data.device_cache import build_cache
     from srl_zoo_tpu_torch.data.loader import DataLoader
     from srl_zoo_tpu_torch.data.schema import load_dataset
@@ -1417,15 +1498,20 @@ def profile_training(dev, data_folder: str, name: str, tokens,
                              f"than {passes} encoder passes: {layouts}")
     log(f"{name}: the {len(layouts)} pool calls of a step read their "
         "BatchNorm outputs in place (channels_last)")
-    steps = [next(batches) for _ in range(PROFILE_STEPS)]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    steps = [next(batches) for _ in range(PROFILE_STEPS + 1)]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=PROFILE_STEPS,
+                                   repeat=1)) as prof:
+        train_step(model, opt, store, steps[0], gen)
         torch.cuda.synchronize()
+        prof.step()  # the warm-up step ends: the window opens
         t0 = time.perf_counter()
-        for batch in steps:
+        for i, batch in enumerate(steps[1:]):
             train_step(model, opt, store, batch, gen)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+            if i == PROFILE_STEPS - 1:
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+            prof.step()
     # a range such as the optimizer's "Optimizer.step#Adam.step" shows on
     # the device as a span from its first to its last kernel, idle gaps
     # included; its kernels are listed on their own, so it is left out
@@ -1445,12 +1531,19 @@ def profile_training(dev, data_folder: str, name: str, tokens,
         log(f"  {e.self_device_time_total / 1e3:8.3f} ms "
             f"{100 * e.self_device_time_total / busy:5.1f}% x{e.count:<4d} "
             f"{e.key[:90]}")
+    launched = {}
     for what, key in (("K1f", "relu_max_pool_fwd"),
                       ("K1b", "relu_max_pool_bwd"), ("K2", "gather_norm")):
         mine = [e for e in kernels if key in e.key]
         t = sum(e.self_device_time_total for e in mine)
+        launched[what] = sum(e.count for e in mine)
         log(f"  {what}: {t / 1e3:.3f} ms ({100 * t / max(busy, 1e-9):.1f}% "
-            f"of busy), {sum(e.count for e in mine)} launches")
+            f"of busy), {launched[what]} launches")
+    # one gather per encoder pass and camera view
+    gathers = PROFILE_STEPS * passes * (2 if cfg.stack_views else 1)
+    if launched["K2"] != gathers:
+        raise AssertionError(f"{name}: the profile holds {launched['K2']} "
+                             f"K2 launches of its steps' {gathers}")
     layout = [e for e in kernels if is_transpose(e.key)]
     lt = sum(e.self_device_time_total for e in layout)
     log(f"  layout transposes (nchw<->nhwc): {sum(e.count for e in layout)} "
@@ -1476,13 +1569,67 @@ def is_transpose(name: str) -> bool:
     return "nchwToNhwc" in name or "nhwcToNchw" in name
 
 
+def timed_checkpoints():
+    """Wrap ``AsyncCheckpointer.save_model`` and ``save_state`` to sum the
+    main thread's seconds inside them: returns the list that gets one
+    entry per ``save_state`` (one per epoch), and the undo."""
+    from srl_zoo_tpu_torch.checkpoint import AsyncCheckpointer
+    real = {n: getattr(AsyncCheckpointer, n)
+            for n in ("save_model", "save_state")}
+    per_epoch, pending = [], [0.0]
+
+    def wrap(name):
+        def timed(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return real[name](self, *args, **kwargs)
+            finally:
+                pending[0] += time.perf_counter() - t0
+                if name == "save_state":
+                    per_epoch.append(pending[0])
+                    pending[0] = 0.0
+        return timed
+    for n in real:
+        setattr(AsyncCheckpointer, n, wrap(n))
+    return per_epoch, lambda: [setattr(AsyncCheckpointer, n, f)
+                               for n, f in real.items()]
+
+
+def check_run_files(run_dir: str, name: str, epochs: int,
+                    plots: bool) -> None:
+    """The plots every run writes (and those of ``--plot-every 1``), and
+    a resume checkpoint that loads with the run's epoch and step."""
+    import torch
+    want = ["states.png", "correlation.png"]
+    if plots:
+        want += [f"plots/epoch_{e}.png" for e in range(1, epochs + 1)] + \
+            ["plots/latest.png", "plots/live.html"]
+    missing = [f for f in want
+               if not os.path.isfile(os.path.join(run_dir, f))
+               or not os.path.getsize(os.path.join(run_dir, f)) > 0]
+    if missing:
+        raise AssertionError(f"{name}: no {missing}")
+    state = torch.load(os.path.join(run_dir, "checkpoints",
+                                    "state_latest.pth"),
+                       map_location="cpu", weights_only=True)
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        last_step = [json.loads(line)["step"] for line in f][-1]
+    if (state["epoch"], state["step"]) != (epochs, last_step):
+        raise AssertionError(f"{name}: state_latest.pth at epoch "
+                             f"{state['epoch']} step {state['step']}, the "
+                             f"run ended at {epochs}, {last_step}")
+    log(f"{name}: {len(want)} plots written; state_latest.pth loads at "
+        f"epoch {state['epoch']}, step {state['step']}")
+
+
 def run_training(data_folder: str, run_dir: str, dev, counters, name: str,
                  tokens, epochs: int, model_kw) -> dict:
     """A config trained through the CLI entry point at batch 32 on the
-    card, then its states scored by KNN-MSE through both neighbour routes
-    and, for the ResNet runs (``model_kw``), one round of 8 concurrent
-    single frames served from the run, with the launch counts zeroed just
-    before and read just after; then its outputs are checked."""
+    card (config 1 with ``--plot-every 1``), then its states scored by
+    KNN-MSE through both neighbour routes and, for the ResNet runs
+    (``model_kw``), one round of 8 concurrent single frames served from
+    the run, with the launch counts zeroed just before and read just
+    after; then its outputs, plots and resume checkpoint are checked."""
 
     import torch
     from srl_zoo_tpu_torch import train as train_cli
@@ -1496,13 +1643,19 @@ def run_training(data_folder: str, run_dir: str, dev, counters, name: str,
     from srl_zoo_tpu_torch.serve import build_server
     dataset = load_dataset(data_folder)
     gt = dataset.ground_truth_states
+    plots = name == "autoencoder"
+    ckpt_s, undo = timed_checkpoints()
     # --- the training path, with the launch counts zeroed just before -----
     zero_counts(counters)
     t0 = time.perf_counter()
-    train_cli.main(["--data-folder", data_folder, "--losses", *tokens,
-                    *cli_flags(model_kw), "--state-dim", str(STATE_DIM),
-                    "-bs", str(TRAIN_BATCH), "--epochs", str(epochs),
-                    "--log-folder", run_dir])
+    try:
+        train_cli.main(["--data-folder", data_folder, "--losses", *tokens,
+                        *cli_flags(model_kw), "--state-dim", str(STATE_DIM),
+                        "-bs", str(TRAIN_BATCH), "--epochs", str(epochs),
+                        "--log-folder", run_dir,
+                        *(["--plot-every", "1"] if plots else [])])
+    finally:
+        undo()
     train_s = time.perf_counter() - t0
     states = np.load(os.path.join(run_dir, "states_rewards.npz"))["states"]
     score, queries, _ = knn_mse(states, gt, k=5, n_samples=KNN_QUERIES,
@@ -1529,8 +1682,10 @@ def run_training(data_folder: str, run_dir: str, dev, counters, name: str,
             raise AssertionError("server thread did not stop")
     launches = read_counts(counters, f"{name} training path")
     # --- end of the training path -----------------------------------------
-    log(f"{name}: train CLI ({epochs} epochs, export, GTC) in "
-        f"{train_s:.1f} s")
+    log(f"{name}: train CLI ({epochs} epochs, export, GTC, plots) in "
+        f"{train_s:.1f} s; main thread inside the checkpoint calls by "
+        f"epoch: {[round(v, 6) for v in ckpt_s]} s")
+    check_run_files(run_dir, name, epochs, plots)
     if not all(launches[k] > 0 for k in TRAINING_KERNELS):
         raise AssertionError(f"a kernel never ran on the training path: "
                              f"{launches}")
@@ -1581,6 +1736,116 @@ def run_training(data_folder: str, run_dir: str, dev, counters, name: str,
         f"of the largest |state|; {TRAIN_FRAMES / export_s:.0f} states/s "
         f"(export of {TRAIN_FRAMES} rows in batches of 256)")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the pipeline
+# ---------------------------------------------------------------------------
+
+def run_pipeline(data_folder: str, work: str, counters) -> dict:
+    """BASELINE config 5 through the port's pipeline entry point
+    (``srl_zoo_tpu_torch.pipeline.main``: train, KNN-MSE with neighbour
+    grids, reward probe, report) for PIPELINE_SEEDS, in ``work``, with the
+    launch counts zeroed just before and read just after; then the report
+    is held against direct scores of each cell's states."""
+    from srl_zoo_tpu_torch import pipeline
+    from srl_zoo_tpu_torch.data.schema import load_dataset
+    from srl_zoo_tpu_torch.evaluation.knn import knn_mse
+    os.makedirs(work, exist_ok=True)
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        # --- the pipeline's path, with the launch counts zeroed just before
+        zero_counts(counters)
+        t0 = time.perf_counter()
+        results = pipeline.main([
+            "--data-folder", data_folder, "--losses", "triplet",
+            "--model-types", "resnet", "--multi-view", "--img-size",
+            str(IMG[0]), "--state-dims", str(STATE_DIM), "-bs",
+            str(TRAIN_BATCH), "--epochs",
+            str(PIPELINE_EPOCHS), "--seeds", *map(str, PIPELINE_SEEDS)])
+        wall = time.perf_counter() - t0
+        launches = read_counts(counters, "pipeline")
+        # --- end of the pipeline's path -----------------------------------
+        with open(os.path.join("logs", os.path.basename(data_folder),
+                               "pipeline_report.json")) as f:
+            report = json.load(f)
+        folders = [os.path.join(work, d) for d in report[0]["log_folders"]]
+    finally:
+        os.chdir(cwd)
+    if not all(launches[k] > 0 for k in PIPELINE_KERNELS):
+        raise AssertionError(f"a kernel never ran in the pipeline: "
+                             f"{launches}")
+    if report != results or len(report) != 1 or \
+            report[0]["seeds"] != list(PIPELINE_SEEDS):
+        raise AssertionError(f"pipeline report: {report}")
+    (cell,) = report
+    gt = load_dataset(data_folder).ground_truth_states
+    per_seed = {"knn_mse": [], "gtc": [], "reward_accuracy": []}
+    for seed, folder in zip(PIPELINE_SEEDS, folders):
+        states = np.load(os.path.join(folder, "states_rewards.npz"))["states"]
+        direct, _, _ = knn_mse(states, gt, k=5)
+        with open(os.path.join(folder, "knn_mse.json")) as f:
+            knn = json.load(f)["knn_mse"]
+        with open(os.path.join(folder, "gtc.txt")) as f:
+            gtc = float(f.read())
+        with open(os.path.join(folder, "reward_accuracy.json")) as f:
+            acc = json.load(f)["accuracy"]
+        with open(os.path.join(folder, "metrics.jsonl")) as f:
+            ips = [json.loads(line)["images_per_sec"] for line in f]
+        files = ["states.png", "correlation.png"] + [
+            f"NearestNeighbors/knn_grid_{g}.png" for g in range(3)]
+        missing = [n for n in files
+                   if not os.path.isfile(os.path.join(folder, n))]
+        if missing or not abs(knn - direct) <= 1e-6 * abs(direct) or \
+                not 0.0 <= acc <= 1.0:
+            raise AssertionError(f"pipeline seed {seed}: knn_mse {knn} vs "
+                                 f"direct {direct}, accuracy {acc}, missing "
+                                 f"{missing}")
+        log(f"pipeline seed {seed}: KNN-MSE {knn:.6f} (direct "
+            f"{direct:.6f}), GTC {gtc:.4f}, reward accuracy {acc:.4f}, "
+            f"train images/s by epoch {[round(v, 1) for v in ips]}")
+        for key, v in (("knn_mse", knn), ("gtc", gtc),
+                       ("reward_accuracy", acc)):
+            per_seed[key].append(v)
+    for key, vals in per_seed.items():
+        if not (abs(cell[key] - np.mean(vals)) <= 1e-6 * max(1.0, abs(
+                cell[key])) and abs(cell[f"{key}_std"] - np.std(vals))
+                <= 1e-6 * max(1.0, abs(cell[key]))):
+            raise AssertionError(f"pipeline report {key}: {cell[key]} +- "
+                                 f"{cell[f'{key}_std']} vs seeds {vals}")
+    log(f"pipeline: config 5, {len(PIPELINE_SEEDS)} seeds x "
+        f"{PIPELINE_EPOCHS} epochs in {wall:.1f} s; report KNN-MSE "
+        f"{cell['knn_mse']:.6f} +- {cell['knn_mse_std']:.6f}, GTC "
+        f"{cell['gtc']:.4f}, reward accuracy {cell['reward_accuracy']:.4f}, "
+        f"images/s {cell['images_per_sec']:.1f}")
+    return launches
+
+
+def check_latent_sweeps(run_dir: str) -> None:
+    """``enjoy_latent`` on a decoder run at 224 px (8 dims x 7 steps): its
+    PNG, and the sweep's middle column (the mean state) against a direct
+    decode of the mean state."""
+    from srl_zoo_tpu_torch import checkpoint as ckpt
+    from srl_zoo_tpu_torch.evaluation import enjoy_latent
+    from srl_zoo_tpu_torch.utils.device import resolve_device
+    t0 = time.perf_counter()
+    out = enjoy_latent.main(["--log-folder", run_dir, "--n-dims", "8",
+                             "--n-steps", "7"])
+    secs = time.perf_counter() - t0
+    cfg, model = ckpt.load_srl_model(run_dir, resolve_device(None))
+    states = np.load(os.path.join(run_dir, "states_rewards.npz"))["states"]
+    grid = enjoy_latent.latent_sweep_grid(cfg, model, states, 8, 7)
+    direct = enjoy_latent.decode_states(cfg, model, states.mean(0)[None])[0]
+    err = float(np.abs(grid[:, 3] - direct[None]).max()) / \
+        float(np.abs(direct).max())
+    if grid.shape != (8, 7) + IMG or not err <= 1e-5 or \
+            not os.path.getsize(out) > 0:
+        raise AssertionError(f"latent sweeps {grid.shape}: middle column "
+                             f"vs direct decode {err}")
+    log(f"enjoy_latent (8 dims x 7 steps at {IMG[0]} px) in {secs:.1f} s; "
+        f"middle column vs direct decode of the mean state: {err:.3g} of "
+        "its largest value")
 
 
 def kernels_only(card: str, tree: str) -> int:
@@ -1730,6 +1995,12 @@ def main(argv) -> int:
                 profile_training(dev, f"{tmp}/data", name, tokens, model_kw)
                 log(f"{name}: training profile in "
                     f"{time.perf_counter() - t0:.1f} s")
+
+            t0 = time.perf_counter()
+            piped = run_pipeline(f"{tmp}/data", f"{tmp}/pipeline", counters)
+            launches = {k: launches[k] + piped[k] for k in counters}
+            check_latent_sweeps(f"{tmp}/autoencoder")
+            log(f"phase 5 (pipeline) in {time.perf_counter() - t0:.1f} s")
     except Exception:
         traceback.print_exc()
         return 1

@@ -34,6 +34,20 @@ from srl_zoo_tpu_torch.data import samplers
 from srl_zoo_tpu_torch.data.schema import Dataset
 
 
+def decode_resize(path: str, hw) -> np.ndarray:
+    """An image file as (H, W, 3) RGB uint8, resized to ``hw`` with
+    cv2's area filter where its size differs; FileNotFoundError if cv2
+    cannot read it."""
+    import cv2
+    img = cv2.imread(path, cv2.IMREAD_COLOR)
+    if img is None:
+        raise FileNotFoundError(f"Could not read image: {path}")
+    img = cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+    if img.shape[:2] != tuple(hw):
+        img = cv2.resize(img, (hw[1], hw[0]), interpolation=cv2.INTER_AREA)
+    return img
+
+
 class DataLoader:
     def __init__(self, dataset: Dataset, indices: np.ndarray,
                  batch_size: int, shuffle: bool = True, seed: int = 0,

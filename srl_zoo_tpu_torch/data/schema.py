@@ -4,8 +4,10 @@ A dataset folder holds ``preprocessed_data.npz`` (actions, rewards,
 episode_starts), ``ground_truth.npz`` (ground_truth_states, images_path)
 and, for the device-resident path, the ``frames.npy`` (N, H, W, C) uint8
 decode cache; a two-camera dataset (multi-view, triplet) holds the second
-view's in ``frames_2.npy``. This port reads frames only from those caches:
-JPEG decode (cv2) waits for a later slice.
+view's in ``frames_2.npy``. This port trains and encodes only from those
+caches: JPEG decode on the data path waits for ROADMAP.md queue A item 6;
+the KNN-MSE image grids decode the recorded images themselves
+(``resolve_image_path``, ``data/loader.py`` ``decode_resize``).
 
 Reward convention: ``rewards[t]`` is the reward upon ARRIVING at frame t,
 so transition t = (frame t, action t, frame t+1) reads ``rewards[t + 1]``.
@@ -40,6 +42,8 @@ class Dataset:
     reward_classes: Optional[np.ndarray] = None
     # the second camera view, (N, H, W, C) uint8 memmap
     frames_2: Optional[np.ndarray] = None
+    # (N,) str, the recorded image of each row (``resolve_image_path``)
+    images_path: Optional[np.ndarray] = None
 
     def __post_init__(self):
         if self.episode_starts is None:
@@ -72,6 +76,17 @@ class Dataset:
         valid[-1] = False
         valid[:-1] &= ~self.episode_starts[1:]
         return np.nonzero(valid)[0].astype(np.int32)
+
+
+def resolve_image_path(data_folder: str, rel: str) -> str:
+    """A recorded image path: datasets store them relative to the dataset
+    folder or to its parent (``data/<ds>/record_x/...``); a path found in
+    neither is returned as it is."""
+    for base in (data_folder, os.path.dirname(data_folder.rstrip("/"))):
+        p = os.path.join(base, rel)
+        if os.path.exists(p):
+            return p
+    return rel
 
 
 def _load_frames_checked(path: str, n: int) -> Optional[np.ndarray]:
@@ -114,7 +129,8 @@ def load_dataset(data_folder: str) -> Dataset:
             if os.path.exists(fpath) else None
     return Dataset(data_folder=data_folder, actions=actions, rewards=rewards,
                    ground_truth_states=gts, episode_starts=episode_starts,
-                   reward_classes=discretize_rewards(rewards), **frames)
+                   reward_classes=discretize_rewards(rewards),
+                   images_path=images_path, **frames)
 
 
 def save_states_rewards(log_folder: str, states: np.ndarray,

@@ -1,5 +1,6 @@
-"""KNN-MSE, the zoo's headline quality metric (port of
-``srl_zoo_tpu/evaluation/knn.py`` ``knn_mse``).
+"""KNN-MSE, the zoo's headline quality metric, and its neighbour image
+grids (port of ``srl_zoo_tpu/evaluation/knn.py`` ``knn_mse`` and
+``save_neighbor_grids``).
 
 For each (sampled) query, take its k nearest neighbours in the LEARNED
 state space and average the squared error between their ground-truth
@@ -11,6 +12,7 @@ the multi-GPU slice.
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -71,3 +73,28 @@ def knn_mse(learned_states: np.ndarray, ground_truth_states: np.ndarray,
     score, neighbor_idx = score_neighbors(idx, queries, gt, k)
     return score, queries, neighbor_idx
 
+
+
+def save_neighbor_grids(data_folder: str, images_path: np.ndarray,
+                        queries: np.ndarray, neighbor_idx: np.ndarray,
+                        out_folder: str, n_grids: int = 5) -> None:
+    """``knn_grid_<g>.png`` for the first ``n_grids`` queries: the query's
+    recorded image and its k neighbours' (224 x 224, decoded with cv2); an
+    image that cannot be read draws "no image"."""
+    from srl_zoo_tpu_torch.data.loader import decode_resize
+    from srl_zoo_tpu_torch.data.schema import resolve_image_path
+    from srl_zoo_tpu_torch.plotting import raster
+
+    os.makedirs(out_folder, exist_ok=True)
+    k = neighbor_idx.shape[1]
+    for g in range(min(n_grids, len(queries))):
+        images = []
+        for i in [queries[g]] + list(neighbor_idx[g]):
+            path = resolve_image_path(data_folder, str(images_path[i]))
+            try:
+                images.append(decode_resize(path, (224, 224)))
+            except FileNotFoundError:
+                images.append(None)
+        titles = ["query"] + [f"nn{j + 1}" for j in range(k)]
+        raster.save_png(raster.image_grid([images], [titles], 160),
+                        os.path.join(out_folder, f"knn_grid_{g}.png"))

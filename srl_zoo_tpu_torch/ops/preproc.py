@@ -39,3 +39,11 @@ def normalize_images(obs: torch.Tensor, mode: str = "tf") -> torch.Tensor:
     scale, offset = affine_params(mode, obs.shape[-1])
     return (obs.to(torch.float32) * torch.from_numpy(scale).to(obs.device)
             + torch.from_numpy(offset).to(obs.device))
+
+
+def denormalize_images(x: torch.Tensor, mode: str = "tf") -> torch.Tensor:
+    """Inverse of "tf" ``normalize_images``, as floats clipped to [0, 1]
+    (to draw a decoder's output: a run with a decoder normalizes "tf")."""
+    if mode != "tf":
+        raise ValueError(f"no inverse of normalize mode {mode!r} here")
+    return ((x + 1.0) * 0.5).clamp(0.0, 1.0)

@@ -8,10 +8,12 @@
 The run folder gets ``exp_config.json``, ``srl_model.pth`` (the best
 validation weights), ``loss_history.npz``, ``metrics.jsonl``,
 ``checkpoints/`` (resume), ``states_rewards.npz`` (states of the whole
-dataset) and ``gtc.txt``. It runs on CUDA unless ``--device cpu`` is
-given; without a GPU it raises. The plots of the JAX CLI (``states.png``,
-``correlation.png``) are not written yet (ROADMAP.md queue A item 7).
-It trains the losses autoencoder, vae (``--beta``), priors, forward,
+dataset), ``states.png``, ``correlation.png`` and ``gtc.txt``; with
+``--plot-every N``, ``plots/epoch_<e>.png`` and ``plots/latest.png``
+every N epochs, ``plots/live.html`` (a page that follows
+``latest.png``) and, unless ``--no-display-plots`` or headless, a live
+window. It runs on CUDA unless ``--device cpu`` is given; without a GPU
+it raises. It trains the losses autoencoder, vae (``--beta``), priors, forward,
 inverse, reward (``--inverse-model-type``) and triplet, alone or as SRL
 splits (``name:weight:split_dim``), with the custom_cnn or the resnet
 (ResNet-18, ``--pretrained-weights`` from a torchvision state dict)
@@ -26,12 +28,17 @@ from __future__ import annotations
 import argparse
 import datetime
 import os
+import shutil
 import sys
+
+import numpy as np
 
 from srl_zoo_tpu_torch.config import (SRLConfig, build_config,
                                       parse_loss_arguments)
 from srl_zoo_tpu_torch.data.schema import load_dataset, save_states_rewards
 from srl_zoo_tpu_torch.evaluation.gtc import ground_truth_correlation
+from srl_zoo_tpu_torch.plotting.representation_plot import (
+    LiveView, plot_correlation, plot_representation)
 from srl_zoo_tpu_torch.training.learner import SRL4robotics
 from srl_zoo_tpu_torch.utils.device import resolve_device
 from srl_zoo_tpu_torch.utils.misc import (createFolder, parseDataFolder,
@@ -87,8 +94,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "<timestamp>_<model>_<losses>)")
     p.add_argument("--num-cpu", type=int, default=4)
     p.add_argument("--no-display-plots", action="store_true",
-                   help="Kept for reference-CLI compatibility")
-    p.add_argument("--plot-every", type=int, default=0)
+                   help="No live window with --plot-every (the plots are "
+                        "written to files either way)")
+    p.add_argument("--plot-every", type=int, default=0,
+                   help="Plot the states every N epochs (0 = off)")
     p.add_argument("--resume", action="store_true",
                    help="Resume from the resume checkpoint in --log-folder")
     p.add_argument("--profile", action="store_true")
@@ -115,8 +124,6 @@ def parse_args(argv=None) -> argparse.Namespace:
 def _check_cli_flags(args: argparse.Namespace) -> None:
     """Flags the config does not record, for features not ported yet."""
     checks = (
-        (args.plot_every > 0, "--plot-every",
-         "ROADMAP.md queue A item 7 (plotting)"),
         (args.profile, "--profile",
          "ROADMAP.md queue A item 9 'Tooling' (torch.profiler tracing)"),
         (args.num_processes > 1 or bool(args.coordinator_address),
@@ -134,6 +141,39 @@ def default_log_folder(dataset_name: str, model_type: str,
     exp = f"{ts}_{model_type}_{'_'.join(loss_names)}"
     return os.path.join("logs", os.path.basename(dataset_name.rstrip("/")),
                         exp)
+
+
+LIVE_HTML = ('<!doctype html><title>SRL live states</title>\n'
+             '<meta http-equiv="refresh" content="2">\n'
+             '<body style="background:#111;text-align:center">\n'
+             '<img src="latest.png" style="max-width:100%">\n')
+
+
+def _epoch_plots(dataset, log_folder: str, every: int, display: bool):
+    """The learner's epoch callback of ``--plot-every``, and the live
+    window it updates (None where there is none). Every ``every`` epochs
+    it plots the states of every ``max(n // 2000, 1)``-th row to
+    ``plots/epoch_<e>.png`` and copies that to ``plots/latest.png``,
+    which ``plots/live.html`` (written now) reloads."""
+    rows = np.arange(0, dataset.n_samples,
+                     max(dataset.n_samples // 2000, 1), dtype=np.int64)
+    plots_dir = os.path.join(log_folder, "plots")
+    os.makedirs(plots_dir, exist_ok=True)
+    with open(os.path.join(plots_dir, "live.html"), "w") as f:
+        f.write(LIVE_HTML)
+    live_view = LiveView.create() if display else None
+
+    def callback(learner, epoch, train_metrics, val_metrics):
+        if (epoch + 1) % every:
+            return
+        states = learner.predict_states(dataset, rows)
+        title = f"States after epoch {epoch + 1}"
+        path = os.path.join(plots_dir, f"epoch_{epoch + 1}.png")
+        plot_representation(states, dataset.rewards[rows], path, title=title)
+        shutil.copyfile(path, os.path.join(plots_dir, "latest.png"))
+        if live_view is not None:
+            live_view.update(states, dataset.rewards[rows], title)
+    return callback, live_view
 
 
 def main(argv=None) -> str:
@@ -177,13 +217,25 @@ def main(argv=None) -> str:
                f"-> {log_folder}")
 
     learner = SRL4robotics(cfg, log_folder=log_folder, device=device)
-    learner.learn(dataset, resume=args.resume,
-                  checkpoint_every=args.checkpoint_every)
+    epoch_callback, live_view = None, None
+    if args.plot_every > 0:
+        epoch_callback, live_view = _epoch_plots(
+            dataset, log_folder, args.plot_every, not args.no_display_plots)
+    try:
+        learner.learn(dataset, resume=args.resume,
+                      checkpoint_every=args.checkpoint_every,
+                      epoch_callback=epoch_callback)
+    finally:
+        if live_view is not None:
+            live_view.close()
 
     states = learner.predict_states(dataset)
     save_states_rewards(log_folder, states, dataset.rewards)
     printGreen(f"Saved states_rewards.npz ({states.shape})")
-    gtc, _ = ground_truth_correlation(states, dataset.ground_truth_states)
+    plot_representation(states, dataset.rewards,
+                        os.path.join(log_folder, "states.png"))
+    gtc, corr = ground_truth_correlation(states, dataset.ground_truth_states)
+    plot_correlation(corr, os.path.join(log_folder, "correlation.png"))
     printGreen(f"GTC score: {gtc:.4f}")
     with open(os.path.join(log_folder, "gtc.txt"), "w") as f:
         f.write(f"{gtc:.6f}\n")

@@ -6,19 +6,20 @@ as the JAX learner does, uploads the frame store to the device once, and
 runs the epoch loop: the train steps over index batches, train metrics
 averaged over valid rows, a masked validation pass in eval mode, the
 best-validation weights kept as on-device copies and exported to
-``srl_model.pth``, the loss history and a resume checkpoint per epoch. One
+``srl_model.pth``, the loss history and a resume checkpoint per epoch,
+both written by ``checkpoint.AsyncCheckpointer`` off the main thread. One
 ``torch.Generator`` on the device, seeded with the config's seed, draws
 the VAE's noise; the resume checkpoint keeps its state. With
 ``--pretrained-weights`` a torchvision ResNet-18 state dict goes into the
 encoder before training (models/torch_port.py). ``predict_states`` encodes
-a dataset through ``evaluation/predict_dataset.py``.
+a dataset, or rows of it, through ``evaluation/predict_dataset.py``.
 """
 
 from __future__ import annotations
 
 import os
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,7 +37,8 @@ from srl_zoo_tpu_torch.training.metrics import MetricsLogger
 from srl_zoo_tpu_torch.training.state import make_model, make_optimizer
 from srl_zoo_tpu_torch.training.train_step import eval_step, train_step
 from srl_zoo_tpu_torch.utils.device import resolve_device, use_strict_float32
-from srl_zoo_tpu_torch.utils.misc import printGreen, printRed, set_global_seeds
+from srl_zoo_tpu_torch.utils.misc import (printGreen, printRed, printYellow,
+                                          set_global_seeds)
 
 
 def split_indices(dataset: Dataset, cfg: SRLConfig
@@ -72,11 +74,6 @@ def mean_metrics(metric_dicts: List[Dict[str, torch.Tensor]],
     means = torch.stack([(stacked(k) * w).sum() / w.sum().clamp_min(1.0)
                          for k, w in zip(names, weights)]).cpu().tolist()
     return recompose_epoch_means(cfg, dict(zip(names, means)))
-
-
-def _state_copy(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
-    """On-device copy of the weights and BatchNorm statistics."""
-    return {k: v.detach().clone() for k, v in model.state_dict().items()}
 
 
 class SRL4robotics:
@@ -129,10 +126,14 @@ class SRL4robotics:
 
     # ---- training ----------------------------------------------------------
     def learn(self, dataset: Dataset, resume: bool = False,
-              checkpoint_every: int = 1) -> Dict[str, float]:
+              checkpoint_every: int = 1,
+              epoch_callback: Optional[Callable] = None
+              ) -> Dict[str, float]:
         """Train on the dataset's transitions; returns the final
         validation metrics. ``resume`` continues from the run folder's
-        resume checkpoint, if there is one."""
+        resume checkpoint, if there is one. ``epoch_callback(learner,
+        epoch, train_metrics, val_metrics)`` runs after each epoch's
+        checkpoints are queued."""
         cfg = self.cfg
         train_idx, val_idx = split_indices(dataset, cfg)
         printGreen(f"{len(train_idx)} training / {len(val_idx)} validation "
@@ -163,9 +164,10 @@ class SRL4robotics:
         # the shuffle of epoch e is drawn from RandomState(seed + e) in a
         # resumed run too
         train_loader.epoch = start_epoch
-        best = _state_copy(self.model)
+        best = ckpt.snapshot(self.model.state_dict())
         improved = False
         val_metrics: Dict[str, float] = {}
+        writer = ckpt.AsyncCheckpointer(self.log_folder, self.device)
         try:
             for epoch in range(start_epoch, cfg.epochs):
                 t_epoch = time.time()
@@ -190,18 +192,29 @@ class SRL4robotics:
                            f"({ips:.0f} img/s)")
                 if val_metrics["total"] < best_val:
                     best_val = val_metrics["total"]
-                    best = _state_copy(self.model)
+                    best = writer.save_model(self.model,
+                                             self.model.state_dict())
                     improved = True
-                    ckpt.save_srl_model(self.log_folder, self.model, best)
                 if (epoch + 1) % max(checkpoint_every, 1) == 0 \
                         or epoch == cfg.epochs - 1:
-                    ckpt.save_train_state(self.log_folder, self.model,
-                                          self.optimizer, self.generator,
-                                          step, epoch + 1, best_val)
+                    writer.save_state(self.model, self.optimizer,
+                                      self.generator, step, epoch + 1,
+                                      best_val)
+                if epoch_callback is not None:
+                    epoch_callback(self, epoch, train_metrics, val_metrics)
         except BaseException:
-            # keep the loss history of the epochs that finished
-            logger.save_history()
-            logger.close()
+            # flush the queued checkpoints (a crash is when the resume
+            # checkpoint is needed) and keep the loss history of the epochs
+            # that finished; a failed flush is reported and the original
+            # error raised
+            try:
+                writer.close()
+            except Exception as err:
+                printYellow(f"checkpoint flush failed during crash "
+                            f"handling: {err!r}")
+            finally:
+                logger.save_history()
+                logger.close()
             raise
 
         model_file = os.path.join(self.log_folder, ckpt.MODEL_FILE)
@@ -212,11 +225,12 @@ class SRL4robotics:
                          "INITIAL (untrained) weights. Check --lr/--losses.")
             self.model.load_state_dict(best)
             if not improved:
-                ckpt.save_srl_model(self.log_folder, self.model)
+                writer.save_model(self.model, best)
         else:
             # resumed without beating the pre-crash best: the exported
             # model stays, and the state export uses it
             self.model.load_state_dict(ckpt.read_state_dict(self.log_folder))
+        writer.close()  # flush the queued writes, the best model's too
         logger.save_history()
         logger.close()
         if not val_metrics:
@@ -235,10 +249,13 @@ class SRL4robotics:
                              for batch in loader], self.cfg)
 
     # ---- inference / export ------------------------------------------------
-    def predict_states(self, dataset: Dataset) -> np.ndarray:
-        """Deterministic states of every row of the dataset."""
+    def predict_states(self, dataset: Dataset,
+                       indices: Optional[np.ndarray] = None) -> np.ndarray:
+        """Deterministic states of the dataset's rows ``indices`` (all rows
+        when None), in that order."""
         encoder = StateEncoder(self.cfg, self.model.eval(), self.device)
-        return predict_dataset.predict_states(encoder, self._store(dataset))
+        return predict_dataset.predict_states(encoder, self._store(dataset),
+                                              indices)
 
     @classmethod
     def load(cls, log_folder: str, device=None) -> "SRL4robotics":

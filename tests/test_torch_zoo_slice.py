@@ -300,22 +300,20 @@ def test_server_encodes_on_one_warmed_thread(port_run, synthetic_dataset,
 
 def test_port_imports_neither_jax_nor_the_jax_package(port_run,
                                                       synthetic_dataset):
-    """After importing every module of the port, chip_smoke and the train
-    CLI included, and a CPU encode, neither jax nor srl_zoo_tpu is
-    loaded."""
+    """After importing every module of the port (found by walking the
+    package) and chip_smoke, and a CPU encode, neither jax nor
+    srl_zoo_tpu is loaded."""
     np.save(os.path.join(port_run, "_probe.npy"),
             np.asarray(synthetic_dataset.frames[:2]))
     code = (
-        "import sys, numpy as np\n"
-        "import chip_smoke\n"
-        "import srl_zoo_tpu_torch.serve, srl_zoo_tpu_torch.bridge\n"
-        "import srl_zoo_tpu_torch.evaluation.predict_dataset\n"
-        "import srl_zoo_tpu_torch.train, srl_zoo_tpu_torch.evaluation.gtc\n"
-        "from srl_zoo_tpu_torch.training import learner, train_step\n"
-        "from srl_zoo_tpu_torch.losses import registry\n"
-        "from srl_zoo_tpu_torch.data import loader, samplers\n"
-        "from srl_zoo_tpu_torch.models import heads, resnet, torch_port\n"
-        "from srl_zoo_tpu_torch.ops import pairwise\n"
+        "import importlib, pkgutil, sys, numpy as np\n"
+        "import chip_smoke, srl_zoo_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    srl_zoo_tpu_torch.__path__, 'srl_zoo_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "assert 'srl_zoo_tpu_torch.pipeline' in names, names\n"
+        "assert 'srl_zoo_tpu_torch.plotting.raster' in names, names\n"
         "from srl_zoo_tpu_torch.evaluation.knn import knn_mse\n"
         "from srl_zoo_tpu_torch.inference import StateEncoder\n"
         f"run = {port_run!r}\n"

@@ -1059,7 +1059,7 @@ def test_exp_config_round_trips_between_the_packages(tmp_path):
     (["--dtype", "bfloat16"], "item 2"),
     (["--grad-accum", "2"], "item 3"),
     (["--device-cache", "off"], "item 6"),
-    (["--plot-every", "1"], "item 7"),
+    (["--num-processes", "2"], "item 8"),
     (["--profile"], "item 9"),
 ])
 def test_unported_flags_name_their_roadmap_item(synthetic_dataset, tmp_path,
