@@ -39,7 +39,10 @@ prints its wall time:
    and CUDA indices. Under ``torch.cuda.set_sync_debug_mode("error")``,
    K2 at 256 and 32 rows from a host index, and a whole train step and
    eval step (``train_step``, ``eval_step``: inputs, forward, loss,
-   backward, Adam) of configs 1, 3 and 5, must not synchronise. Distance +
+   backward, Adam) of configs 1, 3 and 5 and of ``dae``, ``perceptual``
+   (through a frozen DAE), ``episode-prior autoencoder`` and
+   ``autoencoder --grad-accum 4`` (a full cycle of four micro-steps),
+   must not synchronise. Distance +
    top-k (K3) at Q=4,096, N=20,000, D=200, k=6 and at ten ragged shapes
    (Q 1 and 130, N = k and 1,111, D 1 to 600, k 1 to 64), distances
    within 1e-4 relative and indices equal except at ties within that
@@ -100,6 +103,23 @@ prints its wall time:
    5 are profiled after one more step in the profiler's warm-up (device
    time by kernel, busy share, layout transposes and the operations that
    launch them); the window must hold every K2 launch of its 8 steps.
+   Then the rest of the loss zoo at config 1's width (custom_cnn,
+   224x224x3, state_dim 200, batch 32), each with the card-vs-CPU-vs-
+   float64 step (the same DAE draws, episode pairs and frozen-DAE weights
+   on every device) and, but for the gaussian DAE, the train CLI for 2
+   epochs, export, KNN-MSE by both routes and the launch counts as
+   above: ``dae`` (occlusion 0.5), ``dae --noise-type gaussian`` (the
+   step alone), ``perceptual --path-to-dae`` the ``dae`` run (its K1b
+   launches must be 2 x 3 per step: the gradient goes through the frozen
+   DAE's pools), ``episode-prior autoencoder --episode-prior-optimizer
+   separate`` (its discriminator and encoder BCE printed), ``reward-prior
+   autoencoder``, ``supervised:1:2 autoencoder:1:198`` (the ground truth
+   is 2 wide), ``autoencoder --grad-accum 4`` (Adam's step count in
+   ``state_latest.pth`` must be the micro-steps // 4, across epochs) and
+   ``random`` (no train step, no K1b: ``srl_model.pth`` must equal the
+   seed's initial model and the export a direct encode of it). 8 steps
+   each of ``dae`` and ``perceptual`` are profiled as configs 1 and 5
+   are, their pools' layouts checked first.
 5. The pipeline at full width: BASELINE config 5 (triplet, ResNet-18,
    ``--multi-view``, 224x224x3, state_dim 200, batch 32, 2 epochs, seeds
    1 and 2) through ``srl_zoo_tpu_torch.pipeline.main`` on phase 4's
@@ -191,6 +211,28 @@ TRAIN_CONFIGS = (
     ("triplet", ("triplet",), 2, RESNET_VIEWS),
     ("multiview", ("priors",), 2, RESNET_VIEWS),
 )
+# the rest of the loss zoo at config 1's width (custom_cnn, one view):
+# name, --losses tokens, epochs (0: the card-vs-CPU step alone) and the
+# config's other fields, each a train CLI flag (``path_to_dae`` names the
+# run of this list that it reads)
+ZOO_CONFIGS = (
+    ("dae", ("dae",), 2, {}),
+    ("dae-gaussian", ("dae",), 0, {"noise_type": "gaussian"}),
+    ("perceptual", ("perceptual",), 2, {"path_to_dae": "dae"}),
+    ("episode-prior", ("episode-prior", "autoencoder"), 2,
+     {"episode_prior_optimizer": "separate"}),
+    ("reward-prior", ("reward-prior", "autoencoder"), 2, {}),
+    # the ground truth is 2 wide: the supervised loss reads a 2-wide slice
+    ("supervised", ("supervised:1:2", f"autoencoder:1:{STATE_DIM - 2}"), 2,
+     {}),
+    ("grad-accum", ("autoencoder",), 2, {"grad_accum": 4}),
+    ("random", ("random",), 2, {}),
+)
+# the zoo's configs whose whole train and eval steps the sync check runs
+SYNC_ZOO = ("dae", "perceptual", "episode-prior", "grad-accum")
+CLI_FLAG = {"noise_type": "--noise-type",
+            "episode_prior_optimizer": "--episode-prior-optimizer",
+            "grad_accum": "--grad-accum", "path_to_dae": "--path-to-dae"}
 INFERENCE_KERNELS = ("relu_max_pool", "gather_normalize", "knn_topk",
                      "pairwise_sqdist")
 # phase 5: BASELINE config 5 through the pipeline, at two seeds (epochs
@@ -713,7 +755,8 @@ def check_gather_edges(store, dev, g) -> None:
 def step_batch(indices: np.ndarray, rng, n_rows: int) -> dict:
     """A loader-style batch of the store rows ``indices``, with the
     metadata of every loss (actions, rewards, the priors' pairs, the
-    triplet's negatives among the store's ``n_rows`` rows)."""
+    triplet's negatives among the store's ``n_rows`` rows, the episode
+    prior's pairs of rows in four episodes, a 2-wide ground truth)."""
     from srl_zoo_tpu_torch.data import samplers
     b = len(indices)
     actions = rng.randint(0, 4, b).astype(np.int32)
@@ -728,7 +771,20 @@ def step_batch(indices: np.ndarray, rng, n_rows: int) -> dict:
     (batch["dissimilar_partners"],
      batch["dissimilar_mask"]) = samplers.find_dissimilar_pairs(
         actions, rewards, rng)
+    batch["rewards"] = rewards.astype(np.float32)
+    (batch["episode_partners"],
+     batch["episode_labels"]) = samplers.episode_prior_pairs(
+        rng.randint(0, 4, b), rng)
+    batch["gt_states"] = rng.uniform(0, 1, (b, 2)).astype(np.float32)
     return batch
+
+
+def random_dae(batch_size: int, device, seed: int = SEED):
+    """A frozen DAE of config 1's width with seeded random weights, for
+    the perceptual loss where no trained one is at hand."""
+    from srl_zoo_tpu_torch.training.state import make_model
+    cfg = train_config(("dae",), batch_size).replace(seed=seed)
+    return make_model(cfg, device).eval().requires_grad_(False)
 
 
 def check_no_sync(store, dev) -> None:
@@ -737,7 +793,8 @@ def check_no_sync(store, dev) -> None:
     ``eval_step`` (inputs, forward, loss, backward, Adam) of configs 1
     (autoencoder), 3 (priors: the next frames and the pairs' metadata)
     and 5 (triplet, ResNet-18: the second view's positives and the
-    negatives, each view's store here the same tensor) at batch 32, and
+    negatives, each view's store here the same tensor) at batch 32,
+    the zoo's configs of SYNC_ZOO (``zoo_sync_calls``), and
     config 5's checkpoint submits (``AsyncCheckpointer.save_model`` and
     ``save_state``; the worker's host copies wait until the mode is off),
     complete without a synchronise. The mode is first shown to catch one
@@ -783,6 +840,7 @@ def check_no_sync(store, dev) -> None:
         writers[-1].save_model(m, m.state_dict())
         writers[-1].save_state(m, o, gen, 1, 1, 0.5)
     calls.append((f"checkpoint submits of {name}", submits))
+    calls += zoo_sync_calls(views, rng, n, gen, dev)
     tmp = tempfile.mkdtemp()
     for f, fn in real.items():
         setattr(ckpt, f, gated(fn))
@@ -804,6 +862,40 @@ def check_no_sync(store, dev) -> None:
     torch.cuda.synchronize()
     log(f"no synchronise under set_sync_debug_mode('error') (which catches "
         f"a pageable upload): {', '.join(name for name, _ in calls)}")
+
+
+def zoo_sync_calls(views, rng, n: int, gen, dev) -> list:
+    """A whole ``train_step`` and ``eval_step`` at batch 32 of each config
+    of SYNC_ZOO: the DAE with its validation draw, the perceptual loss
+    through a frozen DAE, the episode prior with its two discriminator
+    applies and its partners' metadata, and ``--grad-accum 4`` as a full
+    cycle of four micro-steps."""
+    from srl_zoo_tpu_torch.training.state import make_model, make_optimizer
+    from srl_zoo_tpu_torch.training.train_step import (draw_corruption,
+                                                       eval_step, train_step)
+    calls = []
+    for name, tokens, _, kw in ZOO_CONFIGS:
+        if name not in SYNC_ZOO:
+            continue
+        cfg = train_config(tokens, TRAIN_BATCH, kw)
+        model = make_model(cfg, dev)
+        opt = make_optimizer(cfg, model)
+        batch = step_batch(rng.choice(n, TRAIN_BATCH, replace=False), rng,
+                           n)
+        dae = random_dae(TRAIN_BATCH, dev) \
+            if "perceptual" in cfg.loss_names else None
+        held = draw_corruption(cfg, gen, TRAIN_BATCH, dev) \
+            if cfg.use_dae else None
+
+        def train(m=model, o=opt, b=batch, f=dae, k=cfg.grad_accum):
+            for _ in range(k):
+                train_step(m, o, views, b, gen, f)
+        calls.append((f"train_step of {name}" + (
+            f" ({cfg.grad_accum} micro-steps)" if cfg.grad_accum > 1
+            else ""), train))
+        calls.append((f"eval_step of {name}", lambda m=model, b=batch,
+                      c=held, f=dae: eval_step(m, views, b, c, f)))
+    return calls
 
 
 def _check_no_sync(calls, dev) -> None:
@@ -1306,8 +1398,12 @@ def train_config(tokens, batch_size: int, model_kw=None):
 
 def cli_flags(model_kw) -> list:
     """The train CLI's flags of ``model_kw``."""
-    return (["--model-type", model_kw.get("model_type", "custom_cnn")]
-            + (["--multi-view"] if model_kw.get("multi_view") else []))
+    flags = (["--model-type", model_kw.get("model_type", "custom_cnn")]
+             + (["--multi-view"] if model_kw.get("multi_view") else []))
+    for key, flag in CLI_FLAG.items():
+        if key in model_kw:
+            flags += [flag, str(model_kw[key])]
+    return flags
 
 
 def stacked_frames(dataset, rows, cfg) -> np.ndarray:
@@ -1337,7 +1433,9 @@ def check_train_step_on_cpu(dev, name: str, tokens, model_kw,
     loss, and each gradient relative to its tensor's largest float64
     magnitude (a bias in front of a train-mode BatchNorm has an exact
     gradient of 0; there the scale is 1e-2 of the model's largest
-    gradient), the worst tensor.
+    gradient), the worst tensor. A DAE's corruption, the episode prior's
+    pairs and a perceptual loss's frozen DAE (seeded random weights) are
+    the same on every device.
 
     A ResNet-18 step has, besides, ReLU inputs within rounding of 0, which
     each order of summation routes its own way, and a tensor above such a
@@ -1353,8 +1451,12 @@ def check_train_step_on_cpu(dev, name: str, tokens, model_kw,
 
     import torch
     from srl_zoo_tpu_torch.training.state import make_model
-    from srl_zoo_tpu_torch.training.train_step import _inputs, _loss
+    from srl_zoo_tpu_torch.training.train_step import (_inputs, _loss,
+                                                       draw_corruption)
     cfg = train_config(tokens, CPU_STEP_BATCH, model_kw).replace(seed=seed)
+    if cfg.only_random_features:
+        log(f"{name}: no train step to check (it trains nothing)")
+        return {}
     b = CPU_STEP_BATCH
     rng = np.random.RandomState(seed)
     frames = torch.from_numpy(rng.randint(0, 256, (b + 1,) + IMG).astype(
@@ -1364,6 +1466,12 @@ def check_train_step_on_cpu(dev, name: str, tokens, model_kw,
     batch = step_batch(np.arange(b), rng, b + 1)
     eps = torch.randn((2, b, STATE_DIM),
                       generator=torch.Generator().manual_seed(seed))
+    # the DAE's draw and the perceptual loss's frozen DAE, the same on
+    # every device
+    corruption = draw_corruption(cfg, torch.Generator().manual_seed(seed),
+                                 b, "cpu") if cfg.use_dae else None
+    dae = random_dae(b, torch.device("cpu"), seed) \
+        if "perceptual" in cfg.loss_names else None
     cpu = make_model(cfg, torch.device("cpu"))
     whole = cfg.model_type == "resnet"
     host = torch.device("cpu")
@@ -1387,7 +1495,11 @@ def check_train_step_on_cpu(dev, name: str, tokens, model_kw,
         if cfg.use_vae:
             inputs["noise"] = {"state": eps[0].to(d, dt),
                                "next_state": eps[1].to(d, dt)}
-        loss = _loss(model, inputs)[0]
+        if corruption is not None:
+            inputs["corruption"] = tuple(c.to(d) for c in corruption) \
+                if isinstance(corruption, tuple) else corruption.to(d, dt)
+        frozen = None if dae is None else copy.deepcopy(dae).to(d, dt)
+        loss = _loss(model, inputs, frozen)[0]
         loss.backward()
         res[run] = (float(loss.detach()),
                     {k: p.grad.detach().double().cpu()
@@ -1454,17 +1566,18 @@ def step_seeds(dev, n: int) -> None:
 
 
 def profile_training(dev, data_folder: str, name: str, tokens,
-                     model_kw) -> None:
+                     model_kw, frozen_dae=None) -> None:
     """Device time by kernel, and the device's busy share, over
     PROFILE_STEPS train steps of a config at batch 32 (torch.profiler),
     and the layout transposes among them (channels_last keeps them out).
     One more step runs under the profiler's warm-up before the window
     opens (records at the start of a trace are lost), and the window must
-    hold every gather (K2) of its steps."""
+    hold every gather (K2) of its steps. ``frozen_dae`` is the perceptual
+    loss's."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
     from srl_zoo_tpu_torch.data.device_cache import build_cache
-    from srl_zoo_tpu_torch.data.loader import DataLoader
+    from srl_zoo_tpu_torch.data.loader import DataLoader, batch_flags
     from srl_zoo_tpu_torch.data.schema import load_dataset
     from srl_zoo_tpu_torch.training.state import make_model, make_optimizer
     from srl_zoo_tpu_torch.training.train_step import train_step
@@ -1474,19 +1587,22 @@ def profile_training(dev, data_folder: str, name: str, tokens,
     model = make_model(cfg, dev)
     opt = make_optimizer(cfg, model)
     batches = iter(DataLoader(dataset, dataset.training_indices(),
-                              TRAIN_BATCH, seed=SEED, priors=cfg.use_priors,
-                              triplet=cfg.use_triplet))
-    gen = torch.Generator(device=dev).manual_seed(SEED)  # no VAE: draws none
-    train_step(model, opt, store, next(batches), gen)  # warm: cuDNN plans
+                              TRAIN_BATCH, seed=SEED, **batch_flags(cfg)))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def step(batch):
+        train_step(model, opt, store, batch, gen, frozen_dae)
+    step(next(batches))  # warm: cuDNN plans
     # each pool reads the NHWC view of its BatchNorm's output: that view
-    # is the tensor itself (no copy) only if the output is channels_last
+    # is the tensor itself (no copy) only if the output is channels_last,
+    # which needs the encoder's input in NHWC (a DAE's corrupted frames too)
     enc = model.encoder
     pool_bns = list(enc.bns) if hasattr(enc, "bns") else [enc.bn1]
     layouts = []
     hooks = [bn.register_forward_hook(lambda m, i, out: layouts.append(
         out.is_contiguous(memory_format=torch.channels_last)))
         for bn in pool_bns]
-    train_step(model, opt, store, next(batches), gen)
+    step(next(batches))
     for h in hooks:
         h.remove()
     # one record per pool BatchNorm and encoder pass: obs, next obs (where
@@ -1502,12 +1618,12 @@ def profile_training(dev, data_folder: str, name: str, tokens,
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=PROFILE_STEPS,
                                    repeat=1)) as prof:
-        train_step(model, opt, store, steps[0], gen)
+        step(steps[0])
         torch.cuda.synchronize()
         prof.step()  # the warm-up step ends: the window opens
         t0 = time.perf_counter()
         for i, batch in enumerate(steps[1:]):
-            train_step(model, opt, store, batch, gen)
+            step(batch)
             if i == PROFILE_STEPS - 1:
                 torch.cuda.synchronize()
                 wall_us = (time.perf_counter() - t0) * 1e6
@@ -1553,7 +1669,7 @@ def profile_training(dev, data_folder: str, name: str, tokens,
     # which operations launch them: one more step, with input shapes
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
-        train_step(model, opt, store, steps[0], gen)
+        step(steps[0])
         torch.cuda.synchronize()
     by_op = {}
     for e in prof.events():
@@ -1622,14 +1738,83 @@ def check_run_files(run_dir: str, name: str, epochs: int,
         f"epoch {state['epoch']}, step {state['step']}")
 
 
+def check_trained(run_dir: str, name: str, cfg, launches: dict) -> None:
+    """A trained run's loss fell; its images/s; the episode prior's
+    discriminator and encoder terms; Adam's step count under
+    ``--grad-accum``; the perceptual run's K1b launches: three per
+    encoder backward, and the gradient goes back through the frozen DAE's
+    encoder on the reconstruction too."""
+    import torch
+    hist = np.load(os.path.join(run_dir, "loss_history.npz"))
+    log(f"{name}: train/total by epoch: {hist['train/total'].tolist()}; "
+        f"val/total: {hist['val/total'].tolist()}")
+    if not hist["train/total"][-1] < hist["train/total"][0]:
+        raise AssertionError(f"{name}: the training loss did not fall")
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    ips = [r["images_per_sec"] for r in records]
+    log(f"{name}: train images/s by epoch: {[round(v, 1) for v in ips]}")
+    micro_steps = records[-1]["step"]
+    if cfg.use_episode_prior:
+        log(f"{name}: train discriminator BCE by epoch "
+            f"{hist['train/episode-prior/discriminator'].tolist()}, "
+            f"encoder BCE {hist['train/episode-prior'].tolist()} "
+            f"(ln 2 = {np.log(2.0):.4f})")
+    if cfg.grad_accum > 1:
+        opt = torch.load(os.path.join(run_dir, "checkpoints",
+                                      "state_latest.pth"),
+                         map_location="cpu", weights_only=True)["optimizer"]
+        steps = {int(s["step"]) for a in opt["adams"]
+                 for s in a["state"].values()}
+        want = micro_steps // cfg.grad_accum
+        if steps != {want} or opt["micro_step"] != micro_steps % \
+                cfg.grad_accum:
+            raise AssertionError(f"{name}: Adam stepped {steps} times, micro"
+                                 f"-step {opt['micro_step']}, over "
+                                 f"{micro_steps} micro-steps at "
+                                 f"--grad-accum {cfg.grad_accum}")
+        log(f"{name}: Adam stepped {want} times over {micro_steps} "
+            f"micro-steps (--grad-accum {cfg.grad_accum}, across epochs); "
+            f"{opt['micro_step']} micro-steps pending")
+    if "perceptual" in cfg.loss_names:
+        want = 2 * len(POOLS) * micro_steps
+        if launches["relu_max_pool_bwd"] != want:
+            raise AssertionError(
+                f"{name}: {launches['relu_max_pool_bwd']} K1b launches over "
+                f"{micro_steps} steps, not {want} (the model's pools and the "
+                "frozen DAE's on the reconstruction)")
+        log(f"{name}: K1b {want} launches = 2 x 3 pools x {micro_steps} "
+            "steps: the gradient went through the frozen DAE's pools")
+
+
+def check_random_features(run_dir: str, cfg) -> None:
+    """``--losses random``: srl_model.pth holds the seed's initial weights
+    (a fresh ``make_model`` of the run's config, bit for bit), with no
+    loss history and no resume checkpoint."""
+    import torch
+    from srl_zoo_tpu_torch.training.state import make_model
+    saved = torch.load(os.path.join(run_dir, "srl_model.pth"),
+                       map_location="cpu", weights_only=True)
+    init = make_model(cfg, torch.device("cpu")).state_dict()
+    if set(saved) != set(init) or not all(torch.equal(saved[k], init[k])
+                                          for k in init):
+        raise AssertionError("random: srl_model.pth is not the initial model")
+    if np.load(os.path.join(run_dir, "loss_history.npz")).files or \
+            os.path.exists(os.path.join(run_dir, "checkpoints")):
+        raise AssertionError("random: the run trained")
+    log("random: srl_model.pth equals the seed's initial model; no loss "
+        "history, no checkpoint")
+
+
 def run_training(data_folder: str, run_dir: str, dev, counters, name: str,
                  tokens, epochs: int, model_kw) -> dict:
     """A config trained through the CLI entry point at batch 32 on the
-    card (config 1 with ``--plot-every 1``), then its states scored by
-    KNN-MSE through both neighbour routes and, for the ResNet runs
-    (``model_kw``), one round of 8 concurrent single frames served from
-    the run, with the launch counts zeroed just before and read just
-    after; then its outputs, plots and resume checkpoint are checked."""
+    card (config 1 with ``--plot-every 1``; ``model_kw`` gives the other
+    flags), then its states scored by KNN-MSE through both neighbour
+    routes and, for the ResNet runs, one round of 8 concurrent single
+    frames served from the run, with the launch counts zeroed just before
+    and read just after; then its outputs, plots and resume checkpoint are
+    checked (``--losses random``: that it trained nothing)."""
 
     import torch
     from srl_zoo_tpu_torch import train as train_cli
@@ -1641,6 +1826,7 @@ def run_training(data_folder: str, run_dir: str, dev, counters, name: str,
     from srl_zoo_tpu_torch.inference import StateEncoder
     from srl_zoo_tpu_torch.ops.knn_topk import knn_topk
     from srl_zoo_tpu_torch.serve import build_server
+    resnet = model_kw.get("model_type") == "resnet"
     dataset = load_dataset(data_folder)
     gt = dataset.ground_truth_states
     plots = name == "autoencoder"
@@ -1666,7 +1852,7 @@ def run_training(data_folder: str, run_dir: str, dev, counters, name: str,
     torch.cuda.synchronize()
     cfg = SRLConfig.load(run_dir)
     served = None
-    if model_kw:
+    if resnet:
         server = build_server(run_dir, port=0, max_batch=32, coalesce_ms=5)
         thread = threading.Thread(target=server.serve_forever, daemon=True)
         thread.start()
@@ -1685,18 +1871,18 @@ def run_training(data_folder: str, run_dir: str, dev, counters, name: str,
     log(f"{name}: train CLI ({epochs} epochs, export, GTC, plots) in "
         f"{train_s:.1f} s; main thread inside the checkpoint calls by "
         f"epoch: {[round(v, 6) for v in ckpt_s]} s")
-    check_run_files(run_dir, name, epochs, plots)
-    if not all(launches[k] > 0 for k in TRAINING_KERNELS):
+    if cfg.only_random_features:
+        # nothing trains: no backward, no checkpoint, no loss history
+        check_random_features(run_dir, cfg)
+        kernels = [k for k in TRAINING_KERNELS if k != "relu_max_pool_bwd"]
+    else:
+        check_run_files(run_dir, name, epochs, plots)
+        kernels = TRAINING_KERNELS
+    if not all(launches[k] > 0 for k in kernels):
         raise AssertionError(f"a kernel never ran on the training path: "
                              f"{launches}")
-    hist = np.load(os.path.join(run_dir, "loss_history.npz"))
-    log(f"{name}: train/total by epoch: {hist['train/total'].tolist()}; "
-        f"val/total: {hist['val/total'].tolist()}")
-    if not hist["train/total"][-1] < hist["train/total"][0]:
-        raise AssertionError(f"{name}: the training loss did not fall")
-    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
-        ips = [json.loads(line)["images_per_sec"] for line in f]
-    log(f"{name}: train images/s by epoch: {[round(v, 1) for v in ips]}")
+    if not cfg.only_random_features:
+        check_trained(run_dir, name, cfg, launches)
     if states.shape != (TRAIN_FRAMES, STATE_DIM) or \
             not np.isfinite(states).all():
         raise AssertionError(f"states_rewards.npz: {states.shape} or "
@@ -1990,9 +2176,30 @@ def main(argv) -> int:
                                         model_kw)
                 launches = {k: launches[k] + training[k] for k in counters}
                 log(f"phase 4, {name} in {time.perf_counter() - t0:.1f} s")
-            for name, tokens, _, model_kw in TRAIN_CONFIGS[::4]:  # 1 and 5
+            for name, tokens, epochs, kw in ZOO_CONFIGS:
                 t0 = time.perf_counter()
-                profile_training(dev, f"{tmp}/data", name, tokens, model_kw)
+                if "path_to_dae" in kw:
+                    kw = {**kw, "path_to_dae": f"{tmp}/{kw['path_to_dae']}"}
+                check_train_step_on_cpu(dev, name, tokens, kw)
+                if epochs:
+                    training = run_training(f"{tmp}/data", f"{tmp}/{name}",
+                                            dev, counters, name, tokens,
+                                            epochs, kw)
+                    launches = {k: launches[k] + training[k]
+                                for k in counters}
+                log(f"phase 4, {name} in {time.perf_counter() - t0:.1f} s")
+            from srl_zoo_tpu_torch.training.learner import load_frozen_dae
+            # configs 1 and 5, the DAE (its corrupted frames must keep the
+            # pools' inputs in place) and the perceptual loss
+            profiled = TRAIN_CONFIGS[::4] + tuple(
+                (n, t, e, {**kw, "path_to_dae": f"{tmp}/dae"}
+                 if "path_to_dae" in kw else kw)
+                for n, t, e, kw in ZOO_CONFIGS if n in ("dae", "perceptual"))
+            for name, tokens, _, model_kw in profiled:
+                t0 = time.perf_counter()
+                profile_training(dev, f"{tmp}/data", name, tokens, model_kw,
+                                 load_frozen_dae(f"{tmp}/dae", dev)
+                                 if "path_to_dae" in model_kw else None)
                 log(f"{name}: training profile in "
                     f"{time.perf_counter() - t0:.1f} s")
 

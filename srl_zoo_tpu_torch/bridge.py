@@ -16,6 +16,8 @@
     params/decoder/ConvTranspose_i/bias   -> decoder.deconvs.i.bias
     params/{forward,inverse,reward}_model/Dense_i/kernel,bias (in,out)
                                           -> *_model.layers.i.weight,bias
+    params/discriminator/Dense_i/kernel,bias (in,out)
+                                  -> discriminator.layers.i.weight,bias
 
 A ResNet-18 encoder (models/resnet.py, torchvision's names) maps as
 
@@ -28,9 +30,9 @@ A ResNet-18 encoder (models/resnet.py, torchvision's names) maps as
 with the same kernel and BatchNorm conversions; the stem's kernel is one
 ``Conv_0/kernel`` for either JAX stem ("direct" or "s2d").
 The VAE's encoder Dense_0 is 2 * state_dim wide (mu, then logvar).
-Subtrees the port does not run yet (the episode prior's
-``discriminator``) come back as a list of skipped keys; runs of configs
-1-5 skip none. Convert a run folder in place:
+Keys of subtrees the port does not know come back as a list of skipped
+keys; a run of any loss of the zoo skips none. Convert a run folder in
+place:
 
     python -m srl_zoo_tpu_torch.bridge --log-folder logs/<run>
 
@@ -55,7 +57,7 @@ from srl_zoo_tpu_torch.models.encoders import KERNEL_SIZES
 from srl_zoo_tpu_torch.models.resnet import BLOCKS_PER_LAYER, WIDTHS
 
 _MSGPACK_NDARRAY = 1  # flax's ext type: packed (shape, dtype name, C bytes)
-HEADS = ("forward_model", "inverse_model", "reward_model")
+HEADS = ("forward_model", "inverse_model", "reward_model", "discriminator")
 
 
 def _flatten(tree: Dict, prefix: str = "") -> Dict[str, np.ndarray]:

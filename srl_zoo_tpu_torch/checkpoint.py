@@ -4,10 +4,13 @@
   SRLModules state dict, the reference's file name) beside
   ``exp_config.json``. ``save_srl_model`` / ``load_srl_model``.
 * Full-state resume checkpoints: ``checkpoints/state_latest.pth`` holds the
-  model, the optimizer, the state of the generator that draws the VAE's
-  noise, the step, the epochs completed and the best validation loss so
-  far, and ``checkpoints/meta.json`` the last three, so
-  that ``--resume`` continues a run where it stopped.
+  model, the optimizer (each Adam's state and, in the middle of a
+  ``--grad-accum`` cycle, the micro-step count and the accumulated
+  gradients: training/state.py ``AccumulatingAdam``), the state of the
+  generator that draws the VAE's noise and the DAE's corruption, the
+  step, the epochs completed and the best validation loss so far, and
+  ``checkpoints/meta.json`` the last three, so that ``--resume`` continues
+  a run where it stopped.
 * ``AsyncCheckpointer``, the learner's writer of both: a call takes an
   on-device snapshot and returns; one worker thread copies the snapshot
   to the host and writes it.
@@ -59,8 +62,16 @@ def save_srl_model(log_folder: str, model: SRLModules,
 
 
 def read_state_dict(log_folder: str) -> Dict[str, torch.Tensor]:
-    return torch.load(os.path.join(log_folder, MODEL_FILE),
-                      map_location="cpu", weights_only=True)
+    """The run's ``srl_model.pth``; a JAX run folder (``srl_model.msgpack``
+    alone) raises with the command that converts it."""
+    path = os.path.join(log_folder, MODEL_FILE)
+    if not os.path.exists(path) and os.path.exists(
+            os.path.join(log_folder, "srl_model.msgpack")):
+        raise FileNotFoundError(
+            f"{log_folder} holds a JAX run (srl_model.msgpack, no "
+            f"{MODEL_FILE}); convert it first: python -m "
+            f"srl_zoo_tpu_torch.bridge --log-folder {log_folder}")
+    return torch.load(path, map_location="cpu", weights_only=True)
 
 
 def load_srl_model(log_folder: str, device: torch.device
@@ -130,8 +141,8 @@ def load_meta(log_folder: str) -> dict:
 
 
 def restore_train_state(log_folder: str, model: torch.nn.Module,
-                        optimizer: torch.optim.Optimizer,
-                        generator: torch.Generator) -> Optional[dict]:
+                        optimizer, generator: torch.Generator
+                        ) -> Optional[dict]:
     """Load the resume checkpoint into ``model``, ``optimizer`` and
     ``generator`` (a checkpoint written before the generator was kept
     leaves it at its seed); returns
@@ -233,11 +244,11 @@ class AsyncCheckpointer:
             self._jobs[kind] = payload
         self._event.set()
 
-    def save_state(self, model: torch.nn.Module,
-                   optimizer: torch.optim.Optimizer,
+    def save_state(self, model: torch.nn.Module, optimizer,
                    generator: torch.Generator, step: int, epoch: int,
                    best_val: float) -> None:
-        """Queue the resume checkpoint after ``epoch`` completed epochs."""
+        """Queue the resume checkpoint after ``epoch`` completed epochs
+        (``optimizer``: training/state.py ``AccumulatingAdam``)."""
         self._submit("state", ({"model": snapshot(model.state_dict()),
                                 "optimizer": snapshot(optimizer.state_dict()),
                                 "generator": generator.get_state()},

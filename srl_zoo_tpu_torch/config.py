@@ -7,8 +7,9 @@ defaults are the JAX package's, so a run folder written by either package
 loads in the other with equal fields. A file without ``bn-momentum`` was
 recorded before that key existed and trained at flax's 0.99.
 
-Model types, dtypes, losses and options that the port does not run yet
-raise ``NotImplementedError`` naming the ROADMAP.md item they wait for.
+Every loss of the zoo trains. Model types, dtypes and options that the
+port does not run yet raise ``NotImplementedError`` naming the ROADMAP.md
+item they wait for.
 Loading a config for inference checks only what the encode path needs;
 ``check_trainable`` adds what training needs.
 """
@@ -36,11 +37,6 @@ _PENDING_MODELS = {
     "mlp": "ROADMAP.md queue A item 5 'DenseEncoder / LinearEncoder'",
     "linear": "ROADMAP.md queue A item 5 'DenseEncoder / LinearEncoder'",
 }
-LOSS_ZOO_ITEM = ("ROADMAP.md queue A item 3 'the rest of the loss zoo' (dae, "
-                 "perceptual, episode-prior, reward-prior, supervised, "
-                 "random, --grad-accum, --path-to-dae)")
-TRAINABLE_LOSSES = ("autoencoder", "vae", "priors", "forward", "inverse",
-                    "reward", "triplet")
 
 
 def parse_loss_arguments(loss_args: List[str], state_dim: int
@@ -182,13 +178,7 @@ class SRLConfig:
     def check_trainable(self) -> None:
         """Raise NotImplementedError, naming its ROADMAP.md item, for what
         the port cannot train yet."""
-        pending = [n for n in self.loss_names if n not in TRAINABLE_LOSSES]
-        if pending:
-            raise NotImplementedError(
-                f"training with losses {pending} is not ported yet: "
-                f"{LOSS_ZOO_ITEM}")
         checks = (
-            (self.grad_accum > 1, "--grad-accum > 1", LOSS_ZOO_ITEM),
             (self.balanced_sampling, "--balanced-sampling",
              "ROADMAP.md queue A item 6 'Data'"),
             (self.device_cache not in ("auto", "on"),
@@ -198,7 +188,6 @@ class SRLConfig:
              "ROADMAP.md queue A item 8 'Multi-GPU'"),
             (self.stream_overlap, "--stream-overlap",
              "ROADMAP.md queue A item 6 'Data' (streaming caches)"),
-            (bool(self.path_to_dae), "--path-to-dae", LOSS_ZOO_ITEM),
         )
         for failed, what, item in checks:
             if failed:
@@ -246,10 +235,6 @@ class SRLConfig:
     def use_triplet(self) -> bool:
         return "triplet" in self.loss_names
 
-    # use_episode_prior, use_dae and use_supervised mirror the JAX config;
-    # nothing reads them until those losses are ported (ROADMAP.md queue A
-    # item 3), and check_trainable refuses the losses they name
-
     @property
     def use_episode_prior(self) -> bool:
         return "episode-prior" in self.loss_names
@@ -265,6 +250,11 @@ class SRLConfig:
     @property
     def use_supervised(self) -> bool:
         return "supervised" in self.loss_names
+
+    @property
+    def only_random_features(self) -> bool:
+        """``--losses random`` alone: the run keeps its initial weights."""
+        return self.loss_names == ("random",)
 
     @property
     def needs_next_obs(self) -> bool:

@@ -48,11 +48,19 @@ def decode_resize(path: str, hw) -> np.ndarray:
     return img
 
 
+def batch_flags(cfg) -> Dict[str, bool]:
+    """The DataLoader flags of the metadata that a config's losses read."""
+    return {"priors": cfg.use_priors, "triplet": cfg.use_triplet,
+            "episode_prior": cfg.use_episode_prior,
+            "supervised": cfg.use_supervised}
+
+
 class DataLoader:
     def __init__(self, dataset: Dataset, indices: np.ndarray,
                  batch_size: int, shuffle: bool = True, seed: int = 0,
                  wraparound: bool = True, priors: bool = False,
-                 triplet: bool = False):
+                 triplet: bool = False, episode_prior: bool = False,
+                 supervised: bool = False):
         self.ds = dataset
         self.indices = np.asarray(indices, np.int32)
         self.batch_size = batch_size
@@ -61,6 +69,8 @@ class DataLoader:
         self.wraparound = wraparound
         self.priors = priors
         self.triplet = triplet
+        self.episode_prior = episode_prior
+        self.supervised = supervised
         # epochs iterated so far; a resumed run sets it to its start epoch
         self.epoch = 0
 
@@ -87,6 +97,12 @@ class DataLoader:
             (batch["dissimilar_partners"],
              batch["dissimilar_mask"]) = samplers.find_dissimilar_pairs(
                 ds.actions[idx], ds.reward_classes[nxt], rng)
+        if self.episode_prior:
+            (batch["episode_partners"],
+             batch["episode_labels"]) = samplers.episode_prior_pairs(
+                ds.episode_ids[idx], rng)
+        if self.supervised:
+            batch["gt_states"] = ds.ground_truth_states[idx]
         return batch
 
     def batch_indices(self, order: np.ndarray

@@ -1,9 +1,12 @@
-"""Loss functions (port of ``srl_zoo_tpu/losses/functions.py``) for the
-objectives the port trains: the autoencoder's pixel MSE, the beta-VAE, the
+"""Loss functions (port of ``srl_zoo_tpu/losses/functions.py``): the
+autoencoder's and the denoising autoencoder's pixel MSE, the beta-VAE, the
 four robotic priors, the forward / inverse / reward heads, the triplet
-loss, and the l1/l2 parameter regularizers. The reductions are the JAX package's: a mean over
-each sample's elements, then a mean over the valid rows of the batch; the
-pair terms of the priors average over their valid pairs.
+loss, the reward prior, the episode prior's adversarial pair, the
+perceptual similarity in a frozen DAE's features, the supervised MSE to
+ground-truth states, and the l1/l2 parameter regularizers. The reductions
+are the JAX package's: a mean over each sample's elements, then a mean
+over the valid rows of the batch; the pair terms of the priors and the
+episode prior average over their valid pairs.
 """
 
 from __future__ import annotations
@@ -49,6 +52,13 @@ def autoencoder_loss(recon: torch.Tensor, target: torch.Tensor,
     """Pixel MSE between the reconstruction and the clean normalized
     frame (reference: autoEncoderLoss)."""
     return mse(recon, target, valid)
+
+
+def dae_loss(recon: torch.Tensor, clean_target: torch.Tensor,
+             valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Pixel MSE between the reconstruction of the corrupted frame and
+    the clean frame (reference: daeLoss)."""
+    return mse(recon, clean_target, valid)
 
 
 def kl_divergence(mu: torch.Tensor, logvar: torch.Tensor,
@@ -152,6 +162,54 @@ def triplet_loss(anchor: torch.Tensor, positive: torch.Tensor,
     d_pos = _safe_norm(a - _f32(positive))
     d_neg = _safe_norm(a - _f32(negative))
     return _batch_mean(torch.clamp_min(d_pos - d_neg + margin, 0.0), valid)
+
+
+def reward_prior_loss(state: torch.Tensor, rewards: torch.Tensor,
+                      valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Minus the mean over the state dims of the squared covariance of each
+    dim with the reward, over the valid rows (reference:
+    rewardPriorLoss)."""
+    s, r = _f32(state), _f32(rewards)
+    if valid is None:
+        w = torch.full_like(r, 1.0 / r.shape[0])
+    else:
+        w = valid / valid.sum().clamp_min(1.0)
+    s_c = s - (w[:, None] * s).sum(0, keepdim=True)
+    r_c = r - (w * r).sum()
+    cov = (w[:, None] * s_c * r_c[:, None]).sum(0)
+    return -cov.square().mean()
+
+
+def episode_prior_losses(disc_logits_d: torch.Tensor,
+                         disc_logits_e: torch.Tensor, labels: torch.Tensor,
+                         pair_valid: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(discriminator loss, encoder loss) of the adversarial episode prior
+    (reference: episodePriorLoss): the BCE of the discriminator's logits
+    on detached states against the same-episode labels, and the BCE of a
+    gradient-frozen discriminator's logits against the flipped labels,
+    each over the valid pairs."""
+    def bce(logits, y):
+        logits = _f32(logits)
+        per_pair = (logits.clamp_min(0) - logits * y
+                    + torch.log1p(torch.exp(-logits.abs())))
+        return _batch_mean(per_pair, pair_valid)
+    return bce(disc_logits_d, labels), bce(disc_logits_e, 1.0 - labels)
+
+
+def perceptual_similarity_loss(feat_recon: torch.Tensor,
+                               feat_target: torch.Tensor,
+                               valid: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
+    """MSE in a frozen pretrained DAE's feature space (reference:
+    perceptualSimilarityLoss with --path-to-dae)."""
+    return mse(feat_recon, feat_target, valid)
+
+
+def supervised_loss(state: torch.Tensor, gt_states: torch.Tensor,
+                    valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """MSE to the ground-truth states (reference: models/supervised.py)."""
+    return mse(state, gt_states, valid)
 
 
 def l1_regularization(params: Iterable[torch.Tensor]) -> torch.Tensor:

@@ -1,10 +1,10 @@
-"""Dynamics heads on state slices (port of ``srl_zoo_tpu/models/heads.py``
-``ForwardModel``, ``InverseModel`` and ``RewardModel``).
+"""Heads on state slices (port of ``srl_zoo_tpu/models/heads.py``
+``ForwardModel``, ``InverseModel``, ``RewardModel`` and the episode
+prior's ``Discriminator``).
 
 Each head is a stack of Dense layers with relu between them; ``layers.i``
 is the JAX head's ``Dense_i``. The input widths, which flax infers at its
-first call, are given here from the loss's state slice. The episode
-prior's ``Discriminator`` waits with that loss (ROADMAP.md queue A item 3).
+first call, are given here from the loss's state slice.
 """
 
 from __future__ import annotations
@@ -64,3 +64,14 @@ class RewardModel(_PairHead):
 
     def __init__(self, state_dim: int, n_reward_classes: int):
         super().__init__([2 * state_dim, 64, 64, n_reward_classes])
+
+
+class Discriminator(_PairHead):
+    """(state slice, state slice) -> (B,) logits that the two states come
+    from one episode, two hidden layers of 64."""
+
+    def __init__(self, state_dim: int):
+        super().__init__([2 * state_dim, 64, 64, 1])
+
+    def forward(self, s1: torch.Tensor, s2: torch.Tensor) -> torch.Tensor:
+        return super().forward(s1, s2)[..., 0]

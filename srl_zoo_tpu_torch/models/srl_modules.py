@@ -1,5 +1,5 @@
 """The SRL model (port of ``srl_zoo_tpu/models/srl_modules.py``
-``SRLModules``), for the losses the port trains.
+``SRLModules``).
 
 ``encode`` is the export / serving path: the deterministic state (mu with
 the VAE loss active, whose encoder emits (mu, logvar)). ``forward`` is the
@@ -11,7 +11,12 @@ reconstruction of the reconstruction losses' slice) and the heads'
 its own slice of ``state`` and ``next_state``. With the triplet loss it
 also encodes the positive (the second camera view of the same frame) and
 the negative (a distant frame) into ``pos_state`` and ``neg_state``: mu,
-never sampled.
+never sampled. With the denoising autoencoder the caller passes the
+corrupted frames as ``obs`` (the next frames stay clean) and holds the
+reconstruction to the clean ones. With the episode prior the model holds
+the ``discriminator`` head, which ``discriminate(s1, s2)`` applies; the
+train step calls it (JAX's ``disc_probe`` output, which only makes flax
+create the head's parameters, has no counterpart).
 
 The encoder passes run in the JAX module's order: obs, next obs, positive,
 negative. In train mode each pass folds its batch statistics into
@@ -35,8 +40,8 @@ from torch import nn
 from srl_zoo_tpu_torch.config import SRLConfig
 from srl_zoo_tpu_torch.models.decoders import CNNDecoder
 from srl_zoo_tpu_torch.models.encoders import make_encoder
-from srl_zoo_tpu_torch.models.heads import (ForwardModel, InverseModel,
-                                            RewardModel)
+from srl_zoo_tpu_torch.models.heads import (Discriminator, ForwardModel,
+                                            InverseModel, RewardModel)
 
 
 def slice_state(state: torch.Tensor, sl) -> torch.Tensor:
@@ -69,6 +74,8 @@ class SRLModules(nn.Module):
         if cfg.use_reward:
             self.reward_model = RewardModel(slices["reward"][1],
                                             cfg.n_reward_classes)
+        if cfg.use_episode_prior:
+            self.discriminator = Discriminator(slices["episode-prior"][1])
 
     def _encode_raw(self, obs: torch.Tensor):
         """(mu, logvar) with the VAE active, else (state, None)."""
@@ -93,6 +100,11 @@ class SRLModules(nn.Module):
     def encode(self, obs: torch.Tensor) -> torch.Tensor:
         """Normalized float (B, H, W, C) -> deterministic state (B, d)."""
         return self._encode_raw(obs)[0]
+
+    def discriminate(self, s1: torch.Tensor, s2: torch.Tensor
+                     ) -> torch.Tensor:
+        """The episode prior's (B,) same-episode logits of state pairs."""
+        return self.discriminator(s1, s2)
 
     def forward(self, obs: torch.Tensor,
                 next_obs: Optional[torch.Tensor] = None,

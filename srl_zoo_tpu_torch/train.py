@@ -13,14 +13,20 @@ dataset), ``states.png``, ``correlation.png`` and ``gtc.txt``; with
 every N epochs, ``plots/live.html`` (a page that follows
 ``latest.png``) and, unless ``--no-display-plots`` or headless, a live
 window. It runs on CUDA unless ``--device cpu`` is given; without a GPU
-it raises. It trains the losses autoencoder, vae (``--beta``), priors, forward,
-inverse, reward (``--inverse-model-type``) and triplet, alone or as SRL
-splits (``name:weight:split_dim``), with the custom_cnn or the resnet
-(ResNet-18, ``--pretrained-weights`` from a torchvision state dict)
-encoder; ``--multi-view`` reads a two-camera dataset (``frames_2.npy``):
-triplet takes the second view as its positive, any other loss stacks
-both views into a 6-channel input. Flags of features the port does not run yet
-raise NotImplementedError naming their ROADMAP.md item.
+it raises. It trains every loss of the zoo, alone or as SRL splits
+(``name:weight:split_dim``): autoencoder, vae (``--beta``), dae
+(``--noise-type``, ``--occlusion-percentage``, ``--noise-std``),
+perceptual (a frozen DAE run of the port, ``--path-to-dae``), priors,
+forward, inverse, reward (``--inverse-model-type``), triplet,
+episode-prior (``--episode-prior-optimizer``), reward-prior, supervised
+(its slice as wide as the ground truth) and random (no training: the
+initial model is exported), with ``--grad-accum`` micro-steps per Adam
+step, on the custom_cnn or the resnet (ResNet-18,
+``--pretrained-weights`` from a torchvision state dict) encoder;
+``--multi-view`` reads a two-camera dataset (``frames_2.npy``): triplet
+takes the second view as its positive, any other loss stacks both views
+into a 6-channel input. Flags of features the port does not run yet raise
+NotImplementedError naming their ROADMAP.md item.
 """
 
 from __future__ import annotations

@@ -9,10 +9,17 @@ best-validation weights kept as on-device copies and exported to
 ``srl_model.pth``, the loss history and a resume checkpoint per epoch,
 both written by ``checkpoint.AsyncCheckpointer`` off the main thread. One
 ``torch.Generator`` on the device, seeded with the config's seed, draws
-the VAE's noise; the resume checkpoint keeps its state. With
-``--pretrained-weights`` a torchvision ResNet-18 state dict goes into the
-encoder before training (models/torch_port.py). ``predict_states`` encodes
-a dataset, or rows of it, through ``evaluation/predict_dataset.py``.
+the VAE's noise and the DAE's corruption; the resume checkpoint keeps its
+state. A DAE's validation corruption is drawn once per run from a
+generator of its own, seeded with seed + 1 (so a resumed run draws it
+again the same), and every validation batch of every epoch reads it.
+With ``--pretrained-weights`` a torchvision ResNet-18 state dict goes into
+the encoder before training (models/torch_port.py); with
+``--path-to-dae`` a trained (D)AE run of the port is loaded frozen, outside
+the model (``load_frozen_dae``), for the perceptual loss. A
+``--losses random`` run trains nothing: it saves its initial model and an
+empty loss history. ``predict_states`` encodes a dataset, or rows of it,
+through ``evaluation/predict_dataset.py``.
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ import torch
 from srl_zoo_tpu_torch import checkpoint as ckpt
 from srl_zoo_tpu_torch.config import SRLConfig
 from srl_zoo_tpu_torch.data.device_cache import build_cache
-from srl_zoo_tpu_torch.data.loader import DataLoader
+from srl_zoo_tpu_torch.data.loader import DataLoader, batch_flags
 from srl_zoo_tpu_torch.data.schema import Dataset
 from srl_zoo_tpu_torch.evaluation import predict_dataset
 from srl_zoo_tpu_torch.inference import StateEncoder
@@ -35,7 +42,8 @@ from srl_zoo_tpu_torch.models.torch_port import load_ported_resnet18
 from srl_zoo_tpu_torch.losses.registry import recompose_epoch_means
 from srl_zoo_tpu_torch.training.metrics import MetricsLogger
 from srl_zoo_tpu_torch.training.state import make_model, make_optimizer
-from srl_zoo_tpu_torch.training.train_step import eval_step, train_step
+from srl_zoo_tpu_torch.training.train_step import (draw_corruption,
+                                                   eval_step, train_step)
 from srl_zoo_tpu_torch.utils.device import resolve_device, use_strict_float32
 from srl_zoo_tpu_torch.utils.misc import (printGreen, printRed, printYellow,
                                           set_global_seeds)
@@ -76,6 +84,14 @@ def mean_metrics(metric_dicts: List[Dict[str, torch.Tensor]],
     return recompose_epoch_means(cfg, dict(zip(names, means)))
 
 
+def load_frozen_dae(log_folder: str, device: torch.device):
+    """A trained (D)AE run of the port, in eval mode on ``device`` with
+    its parameters frozen (requires_grad False), channels_last: the
+    perceptual loss's feature network, ``encode`` (mu)."""
+    _, dae = ckpt.load_srl_model(log_folder, device)
+    return dae.requires_grad_(False)
+
+
 class SRL4robotics:
     """Build / learn / predict / save."""
 
@@ -93,8 +109,14 @@ class SRL4robotics:
         self.optimizer = make_optimizer(cfg, self.model)
         self.generator = torch.Generator(device=self.device).manual_seed(
             cfg.seed)
+        if "perceptual" in cfg.loss_names and not cfg.path_to_dae:
+            raise ValueError("perceptual loss requires a frozen DAE "
+                             "(--path-to-dae)")
+        self.frozen_dae = load_frozen_dae(cfg.path_to_dae, self.device) \
+            if cfg.path_to_dae else None
         self._cache = None
         self._cache_of = None
+        self._eval_corruption = None
         n_params = sum(p.numel() for p in self.model.parameters())
         printGreen(f"Model: {cfg.model_type}, {n_params / 1e6:.2f}M params, "
                    f"on {self.device}, compute dtype {cfg.compute_dtype}")
@@ -135,12 +157,31 @@ class SRL4robotics:
         epoch, train_metrics, val_metrics)`` runs after each epoch's
         checkpoints are queued."""
         cfg = self.cfg
+        if cfg.use_supervised:
+            sup_dim = cfg.slices["supervised"][1]
+            gt_dim = dataset.ground_truth_states.shape[1]
+            if sup_dim != gt_dim:
+                raise ValueError(
+                    f"supervised loss slice has size {sup_dim} but ground "
+                    f"truth has {gt_dim} dims: use --state-dim/splits to "
+                    "match")
         train_idx, val_idx = split_indices(dataset, cfg)
         printGreen(f"{len(train_idx)} training / {len(val_idx)} validation "
                    f"samples, batch size {cfg.batch_size}")
         logger = MetricsLogger(self.log_folder)
+        if cfg.only_random_features:
+            printYellow("random features only: skipping training")
+            ckpt.save_srl_model(self.log_folder, self.model)
+            logger.save_history()
+            logger.close()
+            return {"total": 0.0}
         store = self._store(dataset)
-        pairs = {"priors": cfg.use_priors, "triplet": cfg.use_triplet}
+        pairs = batch_flags(cfg)
+        # the DAE's one validation draw, read by every validation pass
+        self._eval_corruption = draw_corruption(
+            cfg, torch.Generator(device=self.device).manual_seed(
+                cfg.seed + 1), cfg.batch_size, self.device) \
+            if cfg.use_dae else None
         train_loader = DataLoader(dataset, train_idx, cfg.batch_size,
                                   shuffle=True, seed=cfg.seed,
                                   wraparound=True, **pairs)
@@ -174,7 +215,8 @@ class SRL4robotics:
                 acc, n_images = [], 0
                 for batch in train_loader:
                     acc.append(train_step(self.model, self.optimizer, store,
-                                          batch, self.generator))
+                                          batch, self.generator,
+                                          self.frozen_dae))
                     step += 1
                     n_images += int(batch["valid"].sum())
                 train_metrics = mean_metrics(acc, cfg)
@@ -245,7 +287,9 @@ class SRL4robotics:
     def _run_eval(self, loader: DataLoader, store: Dict[str, torch.Tensor]
                   ) -> Dict[str, float]:
         """One masked-exact eval pass."""
-        return mean_metrics([eval_step(self.model, store, batch)
+        return mean_metrics([eval_step(self.model, store, batch,
+                                       self._eval_corruption,
+                                       self.frozen_dae)
                              for batch in loader], self.cfg)
 
     # ---- inference / export ------------------------------------------------

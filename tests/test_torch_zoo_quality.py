@@ -1,23 +1,27 @@
 """Trained quality of the port against the JAX package, on the CPU.
 
 Configs 1 (autoencoder), 2 (vae), 3 (priors) and 5 (triplet, ResNet-18,
-two camera views) train in both packages with the golden settings of
-``tests/test_golden.py`` (4 epochs, lr 3e-3, batch 16, state_dim 4, seed
-1) on the 32 px synthetic datasets, from the same initial weights (JAX's
-init, carried into the port by ``bridge.py``) and the same batches. The
-port's states must then
+two camera views), the denoising autoencoder (dae), and the reward prior
+and the episode prior each beside the autoencoder, train in both packages
+with the golden settings of ``tests/test_golden.py`` (4 epochs, lr 3e-3,
+batch 16, state_dim 4, seed 1) on the 32 px synthetic datasets, from the
+same initial weights (JAX's init, carried into the port by
+``bridge.py``) and the same batches. The port's states must then
 
 * pass JAX's own golden gates unchanged: autoencoder KNN-MSE < 0.02 and
   GTC > 0.7, priors KNN-MSE < 0.03, VAE KNN-MSE < 0.025 and GTC > 0.55,
-  triplet KNN-MSE < 0.02 (KNN-MSE with k = 3, as the gates take it);
+  triplet KNN-MSE < 0.02, DAE KNN-MSE < 0.04 and GTC > 0.5, reward prior
+  KNN-MSE < 0.04 and GTC > 0.55 (KNN-MSE with k = 3, as the gates take
+  it), and the episode prior's last train discriminator BCE within 0.12
+  of ln 2;
 * score within ``TOLERANCE`` of JAX's KNN-MSE and GTC.
 
 The tolerance is twice JAX's own spread: the largest deviation of a JAX
 run from its unperturbed run over three reruns whose initial weights are
 perturbed by 1e-6 relative (numpy seeds 0, 1, 2, each weight times 1 +
-1e-6 N(0, 1)), and for the VAE, whose noise each package draws from its
-own generator, also over three reruns with other noise keys
-(PRNGKey(1000 + i)). ``python tests/test_torch_zoo_quality.py`` measures
+1e-6 N(0, 1)), and for the VAE and the DAE, whose noise (the VAE's eps,
+the DAE's occlusion) each package draws from its own generator, also
+over three reruns with other noise keys (PRNGKey(1000 + i)). ``python tests/test_torch_zoo_quality.py`` measures
 it and prints these lines. Measured on the CPU (8 virtual JAX devices, as
 the tests run), JAX with the two-pass BatchNorm variance (see
 ``two_pass_bn_variance`` in test_torch_zoo_train.py):
@@ -27,6 +31,9 @@ the tests run), JAX with the two-pass BatchNorm variance (see
     vae          0.01083    0.6651    0.0117      0.07632
     priors       0.002967   0.7313    0.002302    0.08215
     triplet      0.004863   0.7137    0.01983     0.3277
+    dae          0.01937    0.7576    0.01168     0.1102
+    reward-prior 0.03495    0.7327    0.008357    0.03616
+    episode-prior 0.00732   0.6439    0.008692    0.1485
 
 (TOLERANCE holds twice these spreads.) The port's scores in the same
 runs, beside these, are in PERF.md's findings.
@@ -51,23 +58,36 @@ from srl_zoo_tpu_torch.config import SRLConfig  # noqa: E402
 EPOCHS, LR, BS, STATE_DIM, SEED = 4, 3e-3, 16, 4, 1
 K = 3  # the golden gates' neighbours
 # config: (losses, multi-view ResNet-18)
-CONFIGS = {"autoencoder": ("autoencoder", False), "vae": ("vae", False),
-           "priors": ("priors", False), "triplet": ("triplet", True)}
+CONFIGS = {"autoencoder": (("autoencoder",), False),
+           "vae": (("vae",), False), "priors": (("priors",), False),
+           "triplet": (("triplet",), True), "dae": (("dae",), False),
+           "reward-prior": (("reward-prior", "autoencoder"), False),
+           "episode-prior": (("episode-prior", "autoencoder"), False)}
+# the configs whose noise each package draws from its own generator
+NOISY = ("vae", "dae")
 # JAX's golden gates (tests/test_golden.py): KNN-MSE below, GTC above
 GATES = {"autoencoder": (0.02, 0.7), "vae": (0.025, 0.55),
-         "priors": (0.03, None), "triplet": (0.02, None)}
+         "priors": (0.03, None), "triplet": (0.02, None),
+         "dae": (0.04, 0.5), "reward-prior": (0.04, 0.55),
+         "episode-prior": (None, None)}
+# the episode prior's gate: its last train discriminator BCE within this
+# of ln 2, the equilibrium of a discriminator that can no longer tell
+DISC_GATE = 0.12
 # twice JAX's spread (module docstring): (KNN-MSE, GTC), absolute
 TOLERANCE = {"autoencoder": (0.01057, 0.0349), "vae": (0.0234, 0.1526),
-             "priors": (0.004604, 0.1643), "triplet": (0.03966, 0.6554)}
+             "priors": (0.004604, 0.1643), "triplet": (0.03966, 0.6554),
+             "dae": (0.02336, 0.2204), "reward-prior": (0.01671, 0.07232),
+             "episode-prior": (0.01738, 0.297)}
 
 
 def _jax_cfg(name, ds):
     from srl_zoo_tpu.config import SRLConfig as JaxConfig
-    loss, two_views = CONFIGS[name]
+    losses, two_views = CONFIGS[name]
     views = {"model_type": "resnet", "multi_view": True} if two_views else {}
     return JaxConfig(state_dim=STATE_DIM, img_height=32, img_width=32,
                      batch_size=BS, epochs=EPOCHS, learning_rate=LR,
-                     losses=((loss, 1.0),), split_dims=((loss, -1),),
+                     losses=tuple((n, 1.0) for n in losses),
+                     split_dims=tuple((n, -1) for n in losses),
                      n_actions=ds.n_actions,
                      n_reward_classes=ds.n_reward_classes, seed=SEED,
                      **views)
@@ -161,9 +181,15 @@ def test_trained_quality_matches_jax(name, request, tmp_path,
           f"gtc {want[1]:.6g}")
 
     knn_gate, gtc_gate = GATES[name]
-    assert knn < knn_gate, f"{name}: KNN-MSE gate: {knn}"
+    if knn_gate is not None:
+        assert knn < knn_gate, f"{name}: KNN-MSE gate: {knn}"
     if gtc_gate is not None:
         assert gtc > gtc_gate, f"{name}: GTC gate: {gtc}"
+    if name == "episode-prior":
+        disc = float(np.load(tmp_path / "port" / "loss_history.npz")[
+            "train/episode-prior/discriminator"][-1])
+        print(f"{name}: port last train discriminator BCE {disc:.6g}")
+        assert abs(disc - np.log(2.0)) < DISC_GATE, (name, disc)
     tol_knn, tol_gtc = TOLERANCE[name]
     assert abs(knn - want[0]) <= tol_knn, (name, knn, want[0])
     assert abs(gtc - want[1]) <= tol_gtc, (name, gtc, want[1])
@@ -187,7 +213,7 @@ def measure_spread(names, folder: str) -> None:
         base = _jax_run(name, ds, run + "_base")
         others = [_jax_run(name, ds, f"{run}_p{s}", perturb_seed=s)
                   for s in range(3)]
-        if name == "vae":
+        if name in NOISY:
             others += [_jax_run(name, ds, f"{run}_n{s}", noise_key=1000 + s)
                        for s in range(3)]
         dk = max(abs(o[0] - base[0]) for o in others)

@@ -1055,9 +1055,9 @@ def test_exp_config_round_trips_between_the_packages(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--losses", "dae"], "item 3"),
+    (["--model-type", "mlp"], "item 5"),
     (["--dtype", "bfloat16"], "item 2"),
-    (["--grad-accum", "2"], "item 3"),
+    (["--balanced-sampling"], "item 6"),
     (["--device-cache", "off"], "item 6"),
     (["--num-processes", "2"], "item 8"),
     (["--profile"], "item 9"),
