@@ -15,21 +15,22 @@ prints its wall time:
 2. Each kernel against its plain PyTorch version on the card, at the shapes
    the main paths give it, timed beside its bound:
    relu + pool (K1f) at the three pools of a config-1 forward, at the
-   serve and training batch (32; f32 and bf16) and the export batch (256;
-   f32), y and argmax exact; its backward (K1b) at the three pools of a
-   batch-32 train step, exact on integer-valued inputs (f32 and bf16) and
-   within 1e-6 of the largest |g| on random floats. Both pools must take
-   their vector path there, and each is timed twice: the kernel alone
-   (torch.profiler's device time over 10 calls) and the wrapper (CUDA
-   events over 100 calls, Python included), K1f also as the training
-   forward (with the index plane, at batch 32). Then both pools, exact,
+   serve and training batch (32) and the export batch (256), in f32 and
+   bf16 (``--dtype bfloat16``), y and argmax exact; its backward (K1b) at
+   the three pools of a batch-32 train step, exact on integer-valued
+   inputs and within 1e-6 of the largest |g| on random floats, in f32 and
+   bf16. Both pools must take their vector path there, and each is timed
+   twice: the kernel alone (torch.profiler's device time over 10 calls)
+   and the wrapper (CUDA events over 100 calls, Python included), K1f
+   also as the training forward (with the index plane, at batch 32).
+   Then both pools, exact,
    at edge shapes that reach the scalar path and the tile edges (C 3, 12,
    66 and 64 in f32, 12 and 64 in bf16; 9x13 and 1x1 images, B 1, pads
    of 0, 2 and 1 per side; slices at an odd storage offset), each on the
    path its shape selects. Both pools at the ResNet stem's shape (32,
-   112, 112, 64) f32 with its explicit pads ((1, 1), (1, 1)): the
-   inference and training forward and the backward, exact and on the
-   vector path, each timed beside its bound. Gather + normalize (K2) of
+   112, 112, 64) with its explicit pads ((1, 1), (1, 1)), in f32 and
+   bf16: the inference and training forward and the backward, exact and
+   on the vector path, each timed beside its bound. Gather + normalize (K2) of
    256 random rows of
    a 20,000-frame 224x224x3 store from a host index and of 32 rows (the
    training batch), both modes, within 1e-6 on the vector path, device
@@ -39,7 +40,9 @@ prints its wall time:
    and CUDA indices. Under ``torch.cuda.set_sync_debug_mode("error")``,
    K2 at 256 and 32 rows from a host index, and a whole train step and
    eval step (``train_step``, ``eval_step``: inputs, forward, loss,
-   backward, Adam) of configs 1, 3 and 5 and of ``dae``, ``perceptual``
+   backward, Adam) of configs 1, 3 and 5, of configs 1 and 5 at
+   ``--dtype bfloat16`` and config 1's loss on the mlp model type, and
+   of ``dae``, ``perceptual``
    (through a frozen DAE), ``episode-prior autoencoder`` and
    ``autoencoder --grad-accum 4`` (a full cycle of four micro-steps),
    must not synchronise. Distance +
@@ -120,6 +123,19 @@ prints its wall time:
    seed's initial model and the export a direct encode of it). 8 steps
    each of ``dae`` and ``perceptual`` are profiled as configs 1 and 5
    are, their pools' layouts checked first.
+   Then configs 1 and 5 at ``--dtype bfloat16`` and the dense
+   model types (``--model-type mlp --losses autoencoder``,
+   ``--model-type linear --losses priors``) at the same width, each with
+   the card-vs-CPU-vs-float64 step (a bf16 step, whatever its model, is
+   held as the ResNet f32 step is: loss, whole-gradient and first-layer
+   relative L2 against the float32 config in float64, within twice the
+   CPU bf16 step's deviation, the loss at least twice bfloat16's unit
+   roundoff), the train CLI for 2 epochs, export, KNN-MSE by both routes
+   and one served round of 8 frames. The bf16 runs must launch K1f and
+   K1b in bf16 only, on the vector path; the mlp and linear runs K2, K3
+   and K4 and no pool. 8 bf16 steps each of configs 1 and 5 are
+   profiled beside their f32 profiles, the pools' inputs checked to be
+   channels_last bf16.
 5. The pipeline at full width: BASELINE config 5 (triplet, ResNet-18,
    ``--multi-view``, 224x224x3, state_dim 200, batch 32, 2 epochs, seeds
    1 and 2) through ``srl_zoo_tpu_torch.pipeline.main`` on phase 4's
@@ -137,8 +153,9 @@ prints its wall time:
    direct decode of the mean state.
 6. A ``{"kernels": [...]}`` line (launches summed over all the paths;
    every kernel with ``device_ms``, the kernel alone, beside ``ms``, the
-   wrapper), the nvidia-smi line, and last ``{"ok": true, "device":
-   {...}}``.
+   wrapper; K1f and K1b also with ``device_ms_bf16``, ``ms_bf16`` and
+   ``bound_ms_bf16``, their three pools in bf16), the nvidia-smi line,
+   and last ``{"ok": true, "device": {...}}``.
 
 With ``--pools-of CHECKOUT`` it imports the port package of another
 checkout (e.g. a ``git archive`` of the parent commit), builds that
@@ -150,8 +167,9 @@ card, so that the device times of two trees' kernels can be compared in
 one run on one card.
 
 With ``--step-seeds N`` it runs only phase 4's card-vs-CPU step of the
-two ResNet configs at seeds 0..N-1, holds nothing, and prints each held
-measure's ratio to its limit per seed and the largest over the seeds.
+two ResNet configs and the two bf16 configs at seeds 0..N-1, holds
+nothing, and prints each held measure's ratio to its limit per seed and
+the largest over the seeds.
 
 Bounds use the H100 SXM data-sheet rates at 700 W: 3.35 TB/s of device
 memory and 67 TFLOP/s of float32 outside the tensor cores. No single
@@ -230,9 +248,31 @@ ZOO_CONFIGS = (
 )
 # the zoo's configs whose whole train and eval steps the sync check runs
 SYNC_ZOO = ("dae", "perceptual", "episode-prior", "grad-accum")
+# configs 1 and 5 at --dtype bfloat16, and the dense model types (mlp on
+# config 1's loss, linear on config 3's), through the train CLI as the
+# configs above; each run serves one round of 8 frames. The dense runs
+# take lr 1e-4: Adam moves each weight of their first Dense, 150,528 raw
+# pixels wide, by about lr a step, so at 5e-3 a pre-activation jumps by
+# hundreds a step: the linear map runs away under the priors (its loss
+# grows, in the JAX package as in the port) and the mlp's ReLUs die
+BF16 = {"compute_dtype": "bfloat16"}
+DENSE_LR = 1e-4
+BF16_DENSE_CONFIGS = (
+    ("autoencoder-bf16", ("autoencoder",), 2, BF16),
+    ("triplet-bf16", ("triplet",), 2, {**RESNET_VIEWS, **BF16}),
+    ("mlp", ("autoencoder",), 2, {"model_type": "mlp",
+                                  "learning_rate": DENSE_LR}),
+    ("linear", ("priors",), 2, {"model_type": "linear",
+                                "learning_rate": DENSE_LR}),
+)
+# of those, the ones whose whole train and eval steps the sync check runs
+SYNC_BF16_DENSE = ("autoencoder-bf16", "triplet-bf16", "mlp")
 CLI_FLAG = {"noise_type": "--noise-type",
             "episode_prior_optimizer": "--episode-prior-optimizer",
-            "grad_accum": "--grad-accum", "path_to_dae": "--path-to-dae"}
+            "grad_accum": "--grad-accum", "path_to_dae": "--path-to-dae",
+            "compute_dtype": "--dtype", "learning_rate": "-lr"}
+# bfloat16's unit roundoff: the least loss deviation a bf16 step is held to
+U_BF16 = 2.0 ** -9
 INFERENCE_KERNELS = ("relu_max_pool", "gather_normalize", "knn_topk",
                      "pairwise_sqdist")
 # phase 5: BASELINE config 5 through the pipeline, at two seeds (epochs
@@ -243,6 +283,7 @@ PIPELINE_KERNELS = ("relu_max_pool", "relu_max_pool_bwd", "gather_normalize",
                     "knn_topk")
 TRAINING_KERNELS = ("relu_max_pool", "relu_max_pool_bwd", "gather_normalize",
                     "knn_topk", "pairwise_sqdist")
+POOL_KERNELS = ("relu_max_pool", "relu_max_pool_bwd")
 
 
 def log(msg: str) -> None:
@@ -340,24 +381,23 @@ def pool_line(what, shape, dtype, dev_ms, ms, plain, b, by) -> str:
 
 
 def check_pool(dev, g, times: list) -> dict:
-    """K1f at its nine main-path shapes, the three pools of a config-1
-    forward at the serve and training batch (32; f32 and bf16) and at the
-    export batch (256; f32): y and idx equal to the plain version's, the
-    vector path taken; then the device time (torch.profiler) and the
+    """K1f at its twelve main-path shapes, the three pools of a config-1
+    forward at the serve and training batch (32) and at the export batch
+    (256), each in f32 and bf16: y and idx equal to the plain version's,
+    the vector path taken; then the device time (torch.profiler) and the
     wrapper time (CUDA events over WRAPPER_CALLS calls, Python included)
-    of the inference call, and at batch 32 in f32 also of the training
-    call (with the index plane, from an input that requires grad).
-    Appends one record per timing to ``times``. Returns the f32 sums of
-    the three pools: {"serve": ..., "export": ...}."""
+    of the inference call, and at batch 32 also of the training call
+    (with the index plane, from an input that requires grad). Appends one
+    record per timing to ``times``. Returns the sums of the three pools:
+    {"serve": ..., "export": ..., "serve-bf16": ..., "export-bf16":
+    ...}."""
     import torch
     from srl_zoo_tpu_torch.evaluation.predict_dataset import BATCH
     from srl_zoo_tpu_torch.ops.fused_pool import (relu_max_pool,
                                                   relu_max_pool_plain)
     batches = {SERVE_BATCH: "serve", BATCH: "export"}
-    cases = [((b, hw, hw, 64), dtype)
-             for b, dtypes in ((SERVE_BATCH, (torch.float32, torch.bfloat16)),
-                               (BATCH, (torch.float32,)))
-             for hw in POOLS for dtype in dtypes]
+    cases = [((b, hw, hw, 64), dtype) for b in (SERVE_BATCH, BATCH)
+             for hw in POOLS for dtype in (torch.float32, torch.bfloat16)]
     totals = {}
     for shape, dtype in cases:
         x = torch.randn(shape, generator=g, device=dev).to(dtype)
@@ -379,7 +419,7 @@ def check_pool(dev, g, times: list) -> dict:
         ops = 10 * y.numel()  # nine compares + relu per output
         runs = [("K1f relu_max_pool", lambda: relu_max_pool(x),
                  (x.numel() + y.numel()) * es, False)]
-        if shape[0] == TRAIN_BATCH and dtype == torch.float32:
+        if shape[0] == TRAIN_BATCH:
             xg = x.detach().requires_grad_()
             # the training forward: an autograd node and the index plane,
             # one byte per output
@@ -397,8 +437,10 @@ def check_pool(dev, g, times: list) -> dict:
                           "dtype": str(dtype)[6:], "index": index,
                           "device_ms": dev_ms, "ms": ms, "plain_ms": plain,
                           "bound_ms": b})
-            if dtype == torch.float32 and not index:
-                t = totals.setdefault(batches[shape[0]], dict.fromkeys(
+            if not index:
+                key = batches[shape[0]] + (
+                    "-bf16" if dtype == torch.bfloat16 else "")
+                t = totals.setdefault(key, dict.fromkeys(
                     ("ms", "device_ms", "plain_ms", "bytes", "ops", "err"),
                     0.0))
                 t["ms"] += ms
@@ -409,7 +451,7 @@ def check_pool(dev, g, times: list) -> dict:
                 t["err"] = max(t["err"], err)
     for path, t in totals.items():
         b, by = bound(t["bytes"], t["ops"])
-        log(f"K1f relu_max_pool f32, the three pools of a {path} batch: "
+        log(f"K1f relu_max_pool, the three pools of a {path} batch: "
             f"device {t['device_ms']:.4f} ms, wrapper {t['ms']:.4f} ms "
             f"(plain {t['plain_ms']:.4f} ms), bound {b:.4f} ms by {by}")
     return totals
@@ -418,23 +460,26 @@ def check_pool(dev, g, times: list) -> dict:
 def check_pool_bwd(dev, g, times: list) -> dict:
     """K1b at the three pools of a config-1 train step (batch 32): exact on
     integer-valued inputs and cotangents (every sum exact) in f32 and bf16,
-    and within 1e-6 of the largest |g| on random floats in f32 (both add
-    the nine window positions in raster order in f32, so 0 is expected);
-    the vector path taken; the device time (torch.profiler) and the
-    wrapper time (CUDA events over WRAPPER_CALLS calls) in f32. Appends
-    one record per timing to ``times``. Returns the f32 sums of the three
-    pools."""
+    and within 1e-6 of the largest |g| on random floats in f32 and bf16
+    (both add the nine window positions in raster order in f32 and round
+    once, so 0 is expected); the vector path taken; the device time
+    (torch.profiler) and the wrapper time (CUDA events over WRAPPER_CALLS
+    calls) in f32 and bf16. Appends one record per timing to ``times``.
+    Returns the f32 sums of the three pools, with the bf16 sums under
+    "bf16"."""
     import torch
     from srl_zoo_tpu_torch.ops.fused_pool import (relu_max_pool_bwd,
                                                   relu_max_pool_bwd_plain,
                                                   relu_max_pool_plain)
-    t = dict.fromkeys(("ms", "device_ms", "plain_ms", "bytes", "ops", "err"),
-                      0.0)
+    sums = {dtype: dict.fromkeys(("ms", "device_ms", "plain_ms", "bytes",
+                                  "ops", "err"), 0.0)
+            for dtype in (torch.float32, torch.bfloat16)}
     for hw in POOLS:
         shape = (TRAIN_BATCH, hw, hw, 64)
         for kind, dtype in (("integer", torch.float32),
                             ("random", torch.float32),
-                            ("integer", torch.bfloat16)):
+                            ("integer", torch.bfloat16),
+                            ("random", torch.bfloat16)):
             if kind == "integer":
                 x = torch.randint(-2, 3, shape, generator=g, device=dev)
             else:
@@ -458,48 +503,52 @@ def check_pool_bwd(dev, g, times: list) -> dict:
             if path == "scalar":
                 raise AssertionError(f"relu_max_pool_bwd {shape} {dtype} "
                                      "took the scalar path")
-            if dtype != torch.float32 or kind != "random":
+            if kind != "random":
                 continue
             call = lambda: relu_max_pool_bwd(gy, idx, shape)  # noqa: E731
             dev_ms = device_ms(call, "relu_max_pool_bwd")
             ms = time_ms(call, iters=WRAPPER_CALLS)
             plain = time_ms(lambda: relu_max_pool_bwd_plain(gy, idx, shape))
             # read g and idx once per output, write dx once per input
-            nbytes = gy.numel() * (4 + 1) + dx.numel() * 4
+            es = gy.element_size()
+            nbytes = gy.numel() * (es + 1) + dx.numel() * es
             ops = 8 * dx.numel()  # <= 4 compares and 4 adds per input
             b, by = bound(nbytes, ops)
             log(pool_line("K1b relu_max_pool_bwd", shape, dtype, dev_ms, ms,
                           plain, b, by)
-                + f"; integer inputs exact in f32 and bf16, random max err "
-                f"{err:.3g}, {path} path")
+                + f"; integer inputs exact, random max err {err:.3g}, "
+                f"{path} path")
             times.append({"kernel": "K1b", "shape": list(shape),
-                          "dtype": "float32", "index": True,
+                          "dtype": str(dtype)[6:], "index": True,
                           "device_ms": dev_ms, "ms": ms, "plain_ms": plain,
                           "bound_ms": b})
+            t = sums[dtype]
             t["ms"] += ms
             t["device_ms"] += dev_ms
             t["plain_ms"] += plain
             t["bytes"] += nbytes
             t["ops"] += ops
             t["err"] = max(t["err"], err)
-    b, by = bound(t["bytes"], t["ops"])
-    log(f"K1b relu_max_pool_bwd f32, the three pools of a train step: "
-        f"device {t['device_ms']:.4f} ms, wrapper {t['ms']:.4f} ms (plain "
-        f"{t['plain_ms']:.4f} ms), bound {b:.4f} ms by {by}, "
-        f"{t['bytes'] / 1e6:.1f} MB")
-    return t
+    for dtype, t in sums.items():
+        b, by = bound(t["bytes"], t["ops"])
+        log(f"K1b relu_max_pool_bwd {str(dtype)[6:]}, the three pools of a "
+            f"train step: device {t['device_ms']:.4f} ms, wrapper "
+            f"{t['ms']:.4f} ms (plain {t['plain_ms']:.4f} ms), bound "
+            f"{b:.4f} ms by {by}, {t['bytes'] / 1e6:.1f} MB")
+    return sums[torch.float32] | {"bf16": sums[torch.bfloat16]}
 
 
 def check_stem_pool(dev, g, times: list) -> None:
     """K1f and K1b at the ResNet stem's pool, (TRAIN_BATCH, 112, 112, 64)
-    f32 with the explicit pads ((1, 1), (1, 1)) (its 56 x 56 output is the
-    size of 'SAME', whose windows at 112 px pad (0, 1)): the inference
-    forward, the training forward (with the index plane) and the backward,
-    each exact against its plain version (integer-valued inputs and
-    cotangents for the backward, so every sum is exact) and on the vector
-    path; then each one's device time (torch.profiler), wrapper time (CUDA
-    events over WRAPPER_CALLS calls) and plain time beside its bound.
-    Appends one record per timing to ``times``."""
+    with the explicit pads ((1, 1), (1, 1)) (its 56 x 56 output is the
+    size of 'SAME', whose windows at 112 px pad (0, 1)), in f32 and bf16
+    (config 5 and its ``--dtype bfloat16`` run): the inference forward,
+    the training forward (with the index plane) and the backward, each
+    exact against its plain version (integer-valued inputs and cotangents
+    for the backward, so every sum is exact) and on the vector path; then
+    each one's device time (torch.profiler), wrapper time (CUDA events
+    over WRAPPER_CALLS calls) and plain time beside its bound. Appends one
+    record per timing to ``times``."""
     import torch
     from srl_zoo_tpu_torch.models.resnet import STEM_POOL_PADS as pads
     from srl_zoo_tpu_torch.ops.fused_pool import (relu_max_pool,
@@ -507,55 +556,58 @@ def check_stem_pool(dev, g, times: list) -> None:
                                                   relu_max_pool_bwd_plain,
                                                   relu_max_pool_plain)
     shape = (TRAIN_BATCH, POOLS[0], POOLS[0], 64)
-    x = torch.randint(-2, 3, shape, generator=g, device=dev).float()
-    (y, idx), path = path_of(relu_max_pool, lambda: relu_max_pool(
-        x, pads, with_index=True))
-    yp, ip = relu_max_pool_plain(x, pads, with_index=True)
-    gy = torch.randint(-8, 9, yp.shape, generator=g, device=dev).float()
-    dx, bpath = path_of(relu_max_pool_bwd,
-                        lambda: relu_max_pool_bwd(gy, idx, shape, pads))
-    ref = relu_max_pool_bwd_plain(gy, ip, shape, pads)
-    torch.cuda.synchronize()
-    if not (torch.equal(y, yp) and torch.equal(idx, ip)
-            and torch.equal(relu_max_pool(x, pads), yp)
-            and torch.equal(dx, ref)):
-        raise AssertionError(
-            f"stem pool {shape} pads {pads}: y err "
-            f"{float((y - yp).abs().max())}, {int((idx != ip).sum())} "
-            f"argmax mismatches, dx err {float((dx - ref).abs().max())}")
-    if path != "vector" or bpath != "vector":
-        raise AssertionError(f"stem pool {shape}: forward took the {path} "
-                             f"path, backward the {bpath}")
-    x = torch.randn(shape, generator=g, device=dev)
-    xg = x.detach().requires_grad_()
-    _, ip = relu_max_pool_plain(x, pads, with_index=True)
-    gy = torch.randn(yp.shape, generator=g, device=dev)
-    out, n_out = yp.numel(), x.numel()
-    runs = (
-        ("K1f relu_max_pool, stem", "relu_max_pool_fwd", False,
-         lambda: relu_max_pool(x, pads),
-         lambda: relu_max_pool_plain(x, pads), (n_out + out) * 4,
-         10 * out),
-        ("K1f relu_max_pool, stem training forward (+idx)",
-         "relu_max_pool_fwd", True, lambda: relu_max_pool(xg, pads),
-         lambda: relu_max_pool_plain(x, pads, with_index=True),
-         (n_out + out) * 4 + out, 10 * out),
-        ("K1b relu_max_pool_bwd, stem", "relu_max_pool_bwd", True,
-         lambda: relu_max_pool_bwd(gy, ip, shape, pads),
-         lambda: relu_max_pool_bwd_plain(gy, ip, shape, pads),
-         out * (4 + 1) + n_out * 4, 8 * n_out),
-    )
-    for what, kernel, index, call, plain_call, nbytes, ops in runs:
-        dev_ms = device_ms(call, kernel)
-        ms = time_ms(call, iters=WRAPPER_CALLS)
-        plain = time_ms(plain_call)
-        b, by = bound(nbytes, ops)
-        log(pool_line(what, shape, torch.float32, dev_ms, ms, plain, b, by)
-            + f"; pads {pads}, exact, vector path")
-        times.append({"kernel": what.split()[0], "shape": list(shape),
-                      "dtype": "float32", "index": index, "pads": pads,
-                      "device_ms": dev_ms, "ms": ms, "plain_ms": plain,
-                      "bound_ms": b})
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randint(-2, 3, shape, generator=g, device=dev).to(dtype)
+        (y, idx), path = path_of(relu_max_pool, lambda: relu_max_pool(
+            x, pads, with_index=True))
+        yp, ip = relu_max_pool_plain(x, pads, with_index=True)
+        gy = torch.randint(-8, 9, yp.shape, generator=g, device=dev
+                           ).to(dtype)
+        dx, bpath = path_of(relu_max_pool_bwd,
+                            lambda: relu_max_pool_bwd(gy, idx, shape, pads))
+        ref = relu_max_pool_bwd_plain(gy, ip, shape, pads)
+        torch.cuda.synchronize()
+        if not (torch.equal(y, yp) and torch.equal(idx, ip)
+                and torch.equal(relu_max_pool(x, pads), yp)
+                and torch.equal(dx, ref)):
+            raise AssertionError(
+                f"stem pool {shape} {dtype} pads {pads}: y err "
+                f"{float((y.float() - yp.float()).abs().max())}, "
+                f"{int((idx != ip).sum())} argmax mismatches, dx err "
+                f"{float((dx.float() - ref.float()).abs().max())}")
+        if path != "vector" or bpath != "vector":
+            raise AssertionError(f"stem pool {shape} {dtype}: forward took "
+                                 f"the {path} path, backward the {bpath}")
+        x = torch.randn(shape, generator=g, device=dev).to(dtype)
+        xg = x.detach().requires_grad_()
+        _, ip = relu_max_pool_plain(x, pads, with_index=True)
+        gy = torch.randn(yp.shape, generator=g, device=dev).to(dtype)
+        out, n_out, es = yp.numel(), x.numel(), x.element_size()
+        runs = (
+            ("K1f relu_max_pool, stem", "relu_max_pool_fwd", False,
+             lambda: relu_max_pool(x, pads),
+             lambda: relu_max_pool_plain(x, pads), (n_out + out) * es,
+             10 * out),
+            ("K1f relu_max_pool, stem training forward (+idx)",
+             "relu_max_pool_fwd", True, lambda: relu_max_pool(xg, pads),
+             lambda: relu_max_pool_plain(x, pads, with_index=True),
+             (n_out + out) * es + out, 10 * out),
+            ("K1b relu_max_pool_bwd, stem", "relu_max_pool_bwd", True,
+             lambda: relu_max_pool_bwd(gy, ip, shape, pads),
+             lambda: relu_max_pool_bwd_plain(gy, ip, shape, pads),
+             out * (es + 1) + n_out * es, 8 * n_out),
+        )
+        for what, kernel, index, call, plain_call, nbytes, ops in runs:
+            dev_ms = device_ms(call, kernel)
+            ms = time_ms(call, iters=WRAPPER_CALLS)
+            plain = time_ms(plain_call)
+            b, by = bound(nbytes, ops)
+            log(pool_line(what, shape, dtype, dev_ms, ms, plain, b, by)
+                + f"; pads {pads}, exact, vector path")
+            times.append({"kernel": what.split()[0], "shape": list(shape),
+                          "dtype": str(dtype)[6:], "index": index,
+                          "pads": pads, "device_ms": dev_ms, "ms": ms,
+                          "plain_ms": plain, "bound_ms": b})
 
 
 def check_pool_edges(dev, g) -> None:
@@ -794,8 +846,9 @@ def check_no_sync(store, dev) -> None:
     (autoencoder), 3 (priors: the next frames and the pairs' metadata)
     and 5 (triplet, ResNet-18: the second view's positives and the
     negatives, each view's store here the same tensor) at batch 32,
-    the zoo's configs of SYNC_ZOO (``zoo_sync_calls``), and
-    config 5's checkpoint submits (``AsyncCheckpointer.save_model`` and
+    configs 1 and 5 at ``--dtype bfloat16`` and config 1's loss on the
+    mlp model type (SYNC_BF16_DENSE), the zoo's configs of SYNC_ZOO
+    (``zoo_sync_calls``), and config 5's checkpoint submits (``AsyncCheckpointer.save_model`` and
     ``save_state``; the worker's host copies wait until the mode is off),
     complete without a synchronise. The mode is first shown to catch one
     (a pageable upload); each call runs once before, outside the mode, for
@@ -840,6 +893,18 @@ def check_no_sync(store, dev) -> None:
         writers[-1].save_model(m, m.state_dict())
         writers[-1].save_state(m, o, gen, 1, 1, 0.5)
     calls.append((f"checkpoint submits of {name}", submits))
+    for name, tokens, _, model_kw in BF16_DENSE_CONFIGS:
+        if name not in SYNC_BF16_DENSE:
+            continue
+        cfg = train_config(tokens, TRAIN_BATCH, model_kw)
+        model = make_model(cfg, dev)
+        opt = make_optimizer(cfg, model)
+        batch = step_batch(rng.choice(n, TRAIN_BATCH, replace=False), rng,
+                           n)
+        calls.append((f"train_step of {name}", lambda m=model, o=opt,
+                      b=batch: train_step(m, o, views, b, gen)))
+        calls.append((f"eval_step of {name}", lambda m=model, b=batch:
+                      eval_step(m, views, b)))
     calls += zoo_sync_calls(views, rng, n, gen, dev)
     tmp = tempfile.mkdtemp()
     for f, fn in real.items():
@@ -1204,21 +1269,26 @@ def check_full_route(q, refs, full_idx, queries, gt, score) -> None:
 def zero_counts(counters) -> None:
     for c in counters.values():
         c.launches = 0
-        if hasattr(c, "vector_launches"):
-            c.vector_launches = 0
+        for extra in ("vector_launches", "bf16_launches"):
+            if hasattr(c, extra):
+                setattr(c, extra, 0)
 
 
 def read_counts(counters, path: str) -> dict:
-    """Launch counts by kernel; fails unless every launch of the path of a
-    kernel with a vector path (K1f, K1b, K2) took it."""
+    """Launch counts by kernel, and the pools' bfloat16 launches under
+    ``<kernel>/bf16``; fails unless every launch of the path of a kernel
+    with a vector path (K1f, K1b, K2) took it."""
     launches = {k: c.launches for k, c in counters.items()}
     vector = {k: c.vector_launches for k, c in counters.items()
               if hasattr(c, "vector_launches")}
-    log(f"{path} launches: {launches}; on the vector path: {vector}")
+    bf16 = {k: c.bf16_launches for k, c in counters.items()
+            if hasattr(c, "bf16_launches")}
+    log(f"{path} launches: {launches}; on the vector path: {vector}; in "
+        f"bf16: {bf16}")
     if any(vector[k] != launches[k] for k in vector):
         raise AssertionError(f"a launch of the {path} took the scalar path: "
                              f"{vector} of {launches}")
-    return launches
+    return launches | {f"{k}/bf16": n for k, n in bf16.items()}
 
 
 def run_slice(run_dir, frames_np, store, gt, counters) -> dict:
@@ -1416,7 +1486,11 @@ def stacked_frames(dataset, rows, cfg) -> np.ndarray:
     return frames
 
 
-STEM = ("encoder.conv1.", "encoder.bn1.")  # the ResNet stem's tensors
+# each encoder's first layer (and its BatchNorm): the ResNet stem's
+# tensors, which only the stem pool's routing reaches
+STEMS = {"resnet": ("encoder.conv1.", "encoder.bn1."),
+         "custom_cnn": ("encoder.convs.0.", "encoder.bns.0."),
+         "mlp": ("encoder.layers.0.",), "linear": ("encoder.layers.0.",)}
 
 
 def check_train_step_on_cpu(dev, name: str, tokens, model_kw,
@@ -1446,7 +1520,16 @@ def check_train_step_on_cpu(dev, name: str, tokens, model_kw,
     reaches, ~1e-3 of the model's), and the CPU's f32 deviation is the
     larger of two orders of summation: the CPU step on all cores and on
     one thread. All measures are printed. Returns each run's deviations;
-    with ``hold`` False nothing is held (``--step-seeds``)."""
+    with ``hold`` False nothing is held (``--step-seeds``).
+
+    A ``--dtype bfloat16`` config is held as the ResNet step is, whatever
+    its model: its card and CPU steps run in bf16, the float64 step is the
+    float32 config's (the same function without the roundings), and a
+    bf16 step's gradients stray from it by 10-50% in relative L2 on
+    either device. The loss's limit is at least twice bfloat16's unit
+    roundoff (the CPU tests' rule: one batch's loss deviation is a matter
+    of where its roundings cancel); "stem" is the encoder's first layer
+    and its BatchNorm."""
     import copy
 
     import torch
@@ -1472,16 +1555,19 @@ def check_train_step_on_cpu(dev, name: str, tokens, model_kw,
                                  b, "cpu") if cfg.use_dae else None
     dae = random_dae(b, torch.device("cpu"), seed) \
         if "perceptual" in cfg.loss_names else None
-    cpu = make_model(cfg, torch.device("cpu"))
-    whole = cfg.model_type == "resnet"
     host = torch.device("cpu")
+    cpu = make_model(cfg, host)
+    bf16 = cfg.compute_dtype == "bfloat16"
+    whole = cfg.model_type == "resnet" or bf16
     runs = [("card", copy.deepcopy(cpu).to(
         dev, memory_format=torch.channels_last), dev, torch.float32, 0),
         ("cpu", copy.deepcopy(cpu), host, torch.float32, 0)]
     if whole:
         runs.append(("cpu, one thread", copy.deepcopy(cpu), host,
                      torch.float32, 1))
-    runs.append(("f64", cpu.double(), host, torch.float64, 0))
+    f64 = make_model(cfg.replace(compute_dtype="float32"), host)
+    f64.load_state_dict(cpu.state_dict())
+    runs.append(("f64", f64.double(), host, torch.float64, 0))
     res = {}
     threads = torch.get_num_threads()
     for run, model, d, dt, n_threads in runs:
@@ -1513,7 +1599,8 @@ def check_train_step_on_cpu(dev, name: str, tokens, model_kw,
                      .norm() / torch.cat([g64[k].ravel() for k in keys])
                      .norm())
 
-    stem = [k for k in g64 if k.startswith(STEM)] if whole else []
+    stem = [k for k in g64 if k.startswith(STEMS[cfg.model_type])] \
+        if whole else []
     dev_of = {}
     for run, (loss, grads) in res.items():
         dev_of[run] = {"loss": abs(loss - l64) / abs(l64), "worst": max(
@@ -1527,11 +1614,9 @@ def check_train_step_on_cpu(dev, name: str, tokens, model_kw,
         f"scale (whole gradient L2 {d['l2']:.3g}"
         + (f", stem L2 {d['stem_l2']:.3g}" if stem else "") + ")"
         for run, d in dev_of.items())
-    # the measures held, and the CPU deviations that bound them
-    held = ("loss", "l2", "stem_l2") if whole else ("loss", "worst")
-    cpus = [d for run, d in dev_of.items() if run != "card"]
-    over = [m for m in held if dev_of["card"][m]
-            > 2 * max(d[m] for d in cpus) + 1e-5]
+    # the measures held, and their limits from the CPU deviations
+    limits = step_limits(dev_of, bf16)
+    over = [m for m in limits if dev_of["card"][m] > limits[m] + 1e-5]
     what = ("the whole gradient and the stem" if whole
             else "the worst tensor")
     if hold and over:
@@ -1543,25 +1628,38 @@ def check_train_step_on_cpu(dev, name: str, tokens, model_kw,
     return dev_of
 
 
+def step_limits(dev_of: dict, bf16: bool) -> dict:
+    """The limit of each held measure of a card step: twice the CPU runs'
+    largest deviation (the whole gradient and the stem where the step
+    has them, else the worst tensor), and for a bf16 loss at least twice
+    bfloat16's unit roundoff."""
+    cpus = [d for run, d in dev_of.items() if run != "card"]
+    held = ("loss", "l2", "stem_l2") if "stem_l2" in dev_of["card"] else (
+        "loss", "worst")
+    return {m: 2 * max(max(d[m] for d in cpus),
+                       U_BF16 if bf16 and m == "loss" else 0.0)
+            for m in held}
+
+
 def step_seeds(dev, n: int) -> None:
-    """The ResNet configs' card-vs-CPU step at seeds 0..n-1, nothing held:
-    each held measure's ratio card / (2 x the larger CPU order's) per
+    """The card-vs-CPU step of the ResNet and bf16 configs at seeds
+    0..n-1, nothing held: each held measure's ratio card / limit per
     seed, and its largest over the seeds (the margin the rule leaves)."""
-    for name, tokens, _, model_kw in TRAIN_CONFIGS:
-        if model_kw.get("model_type") != "resnet":
+    for name, tokens, _, model_kw in TRAIN_CONFIGS + BF16_DENSE_CONFIGS:
+        bf16 = model_kw.get("compute_dtype") == "bfloat16"
+        if model_kw.get("model_type") != "resnet" and not bf16:
             continue
         worst = {}
         for seed in range(n):
             d = check_train_step_on_cpu(dev, name, tokens, model_kw, seed,
                                         hold=False)
-            ratios = {m: d["card"][m] / (2 * max(
-                v[m] for r, v in d.items() if r != "card"))
-                for m in ("loss", "l2", "stem_l2")}
-            log(f"{name} seed {seed}: card / (2 x CPU): " + ", ".join(
+            ratios = {m: d["card"][m] / lim
+                      for m, lim in step_limits(d, bf16).items()}
+            log(f"{name} seed {seed}: card / limit: " + ", ".join(
                 f"{m} {r:.3g}" for m, r in ratios.items()))
             for m, r in ratios.items():
                 worst[m] = max(worst.get(m, 0.0), r)
-        log(f"{name}: largest card / (2 x CPU) over {n} seeds: " + ", ".join(
+        log(f"{name}: largest card / limit over {n} seeds: " + ", ".join(
             f"{m} {r:.3g}" for m, r in worst.items()))
 
 
@@ -1596,11 +1694,14 @@ def profile_training(dev, data_folder: str, name: str, tokens,
     # each pool reads the NHWC view of its BatchNorm's output: that view
     # is the tensor itself (no copy) only if the output is channels_last,
     # which needs the encoder's input in NHWC (a DAE's corrupted frames too)
+    # (a bf16 model's pools read bf16)
     enc = model.encoder
     pool_bns = list(enc.bns) if hasattr(enc, "bns") else [enc.bn1]
+    dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" \
+        else torch.float32
     layouts = []
     hooks = [bn.register_forward_hook(lambda m, i, out: layouts.append(
-        out.is_contiguous(memory_format=torch.channels_last)))
+        (out.is_contiguous(memory_format=torch.channels_last), out.dtype)))
         for bn in pool_bns]
     step(next(batches))
     for h in hooks:
@@ -1608,12 +1709,13 @@ def profile_training(dev, data_folder: str, name: str, tokens,
     # one record per pool BatchNorm and encoder pass: obs, next obs (where
     # a loss reads it), and the triplet's positive and negative
     passes = 1 + cfg.needs_next_obs + 2 * cfg.use_triplet
-    if layouts != [True] * (len(pool_bns) * passes):
-        raise AssertionError(f"a pool's input is not channels_last, so the "
-                             f"pool reads a copy, or the step made other "
-                             f"than {passes} encoder passes: {layouts}")
+    if layouts != [(True, dtype)] * (len(pool_bns) * passes):
+        raise AssertionError(f"a pool's input is not channels_last {dtype},"
+                             f" so the pool reads a copy, or the step made "
+                             f"other than {passes} encoder passes: "
+                             f"{layouts}")
     log(f"{name}: the {len(layouts)} pool calls of a step read their "
-        "BatchNorm outputs in place (channels_last)")
+        f"{str(dtype)[6:]} BatchNorm outputs in place (channels_last)")
     steps = [next(batches) for _ in range(PROFILE_STEPS + 1)]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=PROFILE_STEPS,
@@ -1811,10 +1913,17 @@ def run_training(data_folder: str, run_dir: str, dev, counters, name: str,
     """A config trained through the CLI entry point at batch 32 on the
     card (config 1 with ``--plot-every 1``; ``model_kw`` gives the other
     flags), then its states scored by KNN-MSE through both neighbour
-    routes and, for the ResNet runs, one round of 8 concurrent single
-    frames served from the run, with the launch counts zeroed just before
-    and read just after; then its outputs, plots and resume checkpoint are
-    checked (``--losses random``: that it trained nothing)."""
+    routes and, for the ResNet runs and those of BF16_DENSE_CONFIGS, one
+    round of 8 concurrent single frames served from the run, with the
+    launch counts zeroed just before and read just after; then its
+    outputs, plots and resume checkpoint are checked (``--losses
+    random``: that it trained nothing). A bf16 run must launch its pools
+    in bf16 only, an f32 run in f32 only, and an mlp or linear run no
+    pool. A bf16 run's export and served states are held to a direct
+    encode within 2^-7 of the largest |state| (export batches of 256,
+    encode chunks of 32 and served groups of 8 take different cuDNN
+    algorithms, which round bf16 intermediates differently), an f32
+    run's within 1e-5."""
 
     import torch
     from srl_zoo_tpu_torch import train as train_cli
@@ -1826,7 +1935,8 @@ def run_training(data_folder: str, run_dir: str, dev, counters, name: str,
     from srl_zoo_tpu_torch.inference import StateEncoder
     from srl_zoo_tpu_torch.ops.knn_topk import knn_topk
     from srl_zoo_tpu_torch.serve import build_server
-    resnet = model_kw.get("model_type") == "resnet"
+    served_run = model_kw.get("model_type") == "resnet" or name in {
+        n for n, *_ in BF16_DENSE_CONFIGS}
     dataset = load_dataset(data_folder)
     gt = dataset.ground_truth_states
     plots = name == "autoencoder"
@@ -1852,7 +1962,7 @@ def run_training(data_folder: str, run_dir: str, dev, counters, name: str,
     torch.cuda.synchronize()
     cfg = SRLConfig.load(run_dir)
     served = None
-    if resnet:
+    if served_run:
         server = build_server(run_dir, port=0, max_batch=32, coalesce_ms=5)
         thread = threading.Thread(target=server.serve_forever, daemon=True)
         thread.start()
@@ -1878,6 +1988,17 @@ def run_training(data_folder: str, run_dir: str, dev, counters, name: str,
     else:
         check_run_files(run_dir, name, epochs, plots)
         kernels = TRAINING_KERNELS
+    bf16 = cfg.compute_dtype == "bfloat16"
+    if cfg.model_type in ("mlp", "linear"):
+        # no pool in a dense model
+        if any(launches[k] for k in POOL_KERNELS):
+            raise AssertionError(f"{name}: a dense model launched a pool: "
+                                 f"{launches}")
+        kernels = [k for k in kernels if k not in POOL_KERNELS]
+    elif any(launches[f"{k}/bf16"] != (launches[k] if bf16 else 0)
+             for k in POOL_KERNELS):
+        raise AssertionError(f"{name}: the pools of a {cfg.compute_dtype} "
+                             f"run launched in another dtype: {launches}")
     if not all(launches[k] > 0 for k in kernels):
         raise AssertionError(f"a kernel never ran on the training path: "
                              f"{launches}")
@@ -1893,11 +2014,12 @@ def run_training(data_folder: str, run_dir: str, dev, counters, name: str,
     check_full_route(q, refs, full_idx, queries, gt, score)
     encoder = StateEncoder.load(run_dir)
     # export batches of 256 and encode chunks of 32 take different cuDNN
-    # algorithms: f32 rounding, relative to the states' scale
+    # algorithms: their rounding, relative to the states' scale
+    tol = 2.0 ** -7 if bf16 else 1e-5
     direct = encoder.encode(stacked_frames(dataset, np.arange(64), cfg))
     scale = float(np.abs(direct).max())
     err = float(np.abs(states[:64] - direct).max()) / scale
-    if not err <= 1e-5:
+    if not err <= tol:
         raise AssertionError(f"exported states differ from encode: {err} "
                              "of their largest magnitude")
     if served is not None:
@@ -1910,7 +2032,7 @@ def run_training(data_folder: str, run_dir: str, dev, counters, name: str,
             f"median {lat[len(lat) // 2]:.1f} max {lat[-1]:.1f} ms); "
             f"replies vs direct encode max err {serve_err:.3g} of the "
             "largest |state|")
-        if got.shape != (8, STATE_DIM) or not serve_err <= 1e-5:
+        if got.shape != (8, STATE_DIM) or not serve_err <= tol:
             raise AssertionError(f"{name}: served states differ from encode:"
                                  f" {serve_err}")
     store = build_cache(dataset, encoder.device, cfg.stack_views)
@@ -2136,7 +2258,9 @@ def main(argv) -> int:
 
         t0 = time.perf_counter()
         times = []
-        stats = {"relu_max_pool": check_pool(dev, g, times)["export"],
+        pools = check_pool(dev, g, times)
+        stats = {"relu_max_pool": pools["export"] | {
+                     "bf16": pools["export-bf16"]},
                  "relu_max_pool_bwd": check_pool_bwd(dev, g, times)}
         check_stem_pool(dev, g, times)
         check_pool_edges(dev, g)
@@ -2176,6 +2300,14 @@ def main(argv) -> int:
                                         model_kw)
                 launches = {k: launches[k] + training[k] for k in counters}
                 log(f"phase 4, {name} in {time.perf_counter() - t0:.1f} s")
+            for name, tokens, epochs, model_kw in BF16_DENSE_CONFIGS:
+                t0 = time.perf_counter()
+                check_train_step_on_cpu(dev, name, tokens, model_kw)
+                training = run_training(f"{tmp}/data", f"{tmp}/{name}", dev,
+                                        counters, name, tokens, epochs,
+                                        model_kw)
+                launches = {k: launches[k] + training[k] for k in counters}
+                log(f"phase 4, {name} in {time.perf_counter() - t0:.1f} s")
             for name, tokens, epochs, kw in ZOO_CONFIGS:
                 t0 = time.perf_counter()
                 if "path_to_dae" in kw:
@@ -2189,9 +2321,10 @@ def main(argv) -> int:
                                 for k in counters}
                 log(f"phase 4, {name} in {time.perf_counter() - t0:.1f} s")
             from srl_zoo_tpu_torch.training.learner import load_frozen_dae
-            # configs 1 and 5, the DAE (its corrupted frames must keep the
-            # pools' inputs in place) and the perceptual loss
-            profiled = TRAIN_CONFIGS[::4] + tuple(
+            # configs 1 and 5 in f32 and bf16, the DAE (its corrupted
+            # frames must keep the pools' inputs in place) and the
+            # perceptual loss
+            profiled = TRAIN_CONFIGS[::4] + BF16_DENSE_CONFIGS[:2] + tuple(
                 (n, t, e, {**kw, "path_to_dae": f"{tmp}/dae"}
                  if "path_to_dae" in kw else kw)
                 for n, t, e, kw in ZOO_CONFIGS if n in ("dae", "perceptual"))
@@ -2231,6 +2364,12 @@ def main(argv) -> int:
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": launches[name],
                  "max_abs_err": s["err"], "ms": s["ms"]}
+        if "bf16" in s:
+            # the pools' bf16 shapes of the same calls: device ms and bound
+            b16 = s["bf16"]
+            entry |= {"device_ms_bf16": b16["device_ms"],
+                      "ms_bf16": b16["ms"], "bound_ms_bf16": bound(
+                          b16["bytes"], b16["ops"])[0]}
         kernels.append(entry | {"device_ms": s["device_ms"],
                                 "plain_ms": s["plain_ms"], "bound_ms": b,
                                 "bound_by": by,

@@ -10,6 +10,7 @@
                                           -> *.bns.i.running_mean,var
     params/{encoder,decoder}/Dense_0/kernel,bias (in,out)
                                           -> *.fc.weight (out,in),bias
+                                             (CustomCNN, CNNDecoder)
     params/decoder/ConvTranspose_i/kernel (kh,kw,in,out)
                      -> decoder.deconvs.i.weight (in,out,kh,kw), flipped on
                         both spatial axes (models/decoders.py)
@@ -28,7 +29,15 @@ A ResNet-18 encoder (models/resnet.py, torchvision's names) maps as
     params/encoder/BasicBlock_i/Conv_2, BatchNorm_2   -> ...downsample.0, .1
 
 with the same kernel and BatchNorm conversions; the stem's kernel is one
-``Conv_0/kernel`` for either JAX stem ("direct" or "s2d").
+``Conv_0/kernel`` for either JAX stem ("direct" or "s2d"). The mlp and
+linear model types (``DenseEncoder``, ``LinearEncoder``, ``DenseDecoder``:
+Dense stacks, models/mlp.py) map as the heads do:
+
+    params/{encoder,decoder}/Dense_i/kernel,bias (in,out)
+                                          -> *.layers.i.weight (out,in),bias
+
+A bfloat16 run's parameters and statistics are float32 in both packages,
+so its weights map as a float32 run's.
 The VAE's encoder Dense_0 is 2 * state_dim wide (mu, then logvar).
 Keys of subtrees the port does not know come back as a list of skipped
 keys; a run of any loss of the zoo skips none. Convert a run folder in
@@ -96,8 +105,25 @@ def state_dict_from_jax(params: Dict, batch_stats: Dict
         sd[f"{dst}.weight"] = take(
             f"params/{jax_name}/kernel").permute(3, 2, 0, 1).contiguous()
 
+    def dense_stack(jax_name: str, port: str) -> None:
+        i = 0
+        while f"params/{jax_name}/Dense_{i}/kernel" in flat:
+            sd[f"{port}.layers.{i}.weight"] = take(
+                f"params/{jax_name}/Dense_{i}/kernel").T.contiguous()
+            sd[f"{port}.layers.{i}.bias"] = take(
+                f"params/{jax_name}/Dense_{i}/bias")
+            i += 1
+
+    def fc(part: str) -> None:
+        sd[f"{part}.fc.weight"] = take(
+            f"params/{part}/Dense_0/kernel").T.contiguous()
+        sd[f"{part}.fc.bias"] = take(f"params/{part}/Dense_0/bias")
+
     sd: Dict[str, torch.Tensor] = {}
-    if "params/encoder/BasicBlock_0/Conv_0/kernel" in flat:  # ResNet-18
+    conv_encoder = "params/encoder/Conv_0/kernel" in flat
+    if not conv_encoder:  # mlp, linear
+        dense_stack("encoder", "encoder")
+    elif "params/encoder/BasicBlock_0/Conv_0/kernel" in flat:  # ResNet-18
         conv("encoder.conv1", "encoder/Conv_0")
         _take_bn(sd, take, "encoder.bn1", "encoder/BatchNorm_0")
         for i in range(len(WIDTHS) * BLOCKS_PER_LAYER):
@@ -113,12 +139,12 @@ def state_dict_from_jax(params: Dict, batch_stats: Dict
         for i in range(len(KERNEL_SIZES)):
             conv(f"encoder.convs.{i}", f"encoder/Conv_{i}")
             _take_bn(sd, take, f"encoder.bns.{i}", f"encoder/BatchNorm_{i}")
-    sd["encoder.fc.weight"] = take("params/encoder/Dense_0/kernel").T.contiguous()
-    sd["encoder.fc.bias"] = take("params/encoder/Dense_0/bias")
-    if "params/decoder/Dense_0/kernel" in flat:
-        sd["decoder.fc.weight"] = take(
-            "params/decoder/Dense_0/kernel").T.contiguous()
-        sd["decoder.fc.bias"] = take("params/decoder/Dense_0/bias")
+    if conv_encoder:
+        fc("encoder")
+    if "params/decoder/ConvTranspose_0/kernel" not in flat:  # DenseDecoder
+        dense_stack("decoder", "decoder")
+    else:
+        fc("decoder")
         for i in range(len(DECODER_WIDTHS) + 1):
             d = f"decoder.deconvs.{i}"
             sd[f"{d}.weight"] = deconv_weight_from_flax(
@@ -127,13 +153,7 @@ def state_dict_from_jax(params: Dict, batch_stats: Dict
         for i in range(len(DECODER_WIDTHS)):
             _take_bn(sd, take, f"decoder.bns.{i}", f"decoder/BatchNorm_{i}")
     for head in HEADS:
-        i = 0
-        while f"params/{head}/Dense_{i}/kernel" in flat:
-            sd[f"{head}.layers.{i}.weight"] = take(
-                f"params/{head}/Dense_{i}/kernel").T.contiguous()
-            sd[f"{head}.layers.{i}.bias"] = take(
-                f"params/{head}/Dense_{i}/bias")
-            i += 1
+        dense_stack(head, head)
     unknown = [k for k in flat
                if k.split("/")[1] in ("encoder", "decoder") + HEADS]
     if unknown:

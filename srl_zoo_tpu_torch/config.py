@@ -7,9 +7,10 @@ defaults are the JAX package's, so a run folder written by either package
 loads in the other with equal fields. A file without ``bn-momentum`` was
 recorded before that key existed and trained at flax's 0.99.
 
-Every loss of the zoo trains. Model types, dtypes and options that the
-port does not run yet raise ``NotImplementedError`` naming the ROADMAP.md
-item they wait for.
+Every loss of the zoo trains, on every model type (custom_cnn, resnet,
+mlp, linear) at either compute dtype (float32, bfloat16). Options that
+the port does not run yet raise ``NotImplementedError`` naming the
+ROADMAP.md item they wait for.
 Loading a config for inference checks only what the encode path needs;
 ``check_trainable`` adds what training needs.
 """
@@ -27,16 +28,11 @@ VALID_LOSSES = (
     "supervised", "random",
 )
 VALID_MODELS = ("custom_cnn", "resnet", "mlp", "linear")
+VALID_DTYPES = ("float32", "bfloat16")
 # losses that need a decoder head
 RECONSTRUCTION_LOSSES = ("autoencoder", "vae", "dae", "perceptual")
 # losses whose formulas consume the next state s'
 NEXT_STATE_LOSSES = ("priors", "forward", "inverse", "reward")
-
-# where each model type that the port does not run waits (ROADMAP.md A)
-_PENDING_MODELS = {
-    "mlp": "ROADMAP.md queue A item 5 'DenseEncoder / LinearEncoder'",
-    "linear": "ROADMAP.md queue A item 5 'DenseEncoder / LinearEncoder'",
-}
 
 
 def parse_loss_arguments(loss_args: List[str], state_dim: int
@@ -137,14 +133,9 @@ class SRLConfig:
         if self.model_type not in VALID_MODELS:
             raise ValueError(f"Unknown model type '{self.model_type}'. "
                              f"Valid: {', '.join(VALID_MODELS)}")
-        if self.model_type in _PENDING_MODELS:
-            raise NotImplementedError(
-                f"model type '{self.model_type}' is not ported yet: "
-                f"{_PENDING_MODELS[self.model_type]}")
-        if self.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute dtype '{self.compute_dtype}' is not ported yet: "
-                "ROADMAP.md queue A item 2 'bfloat16 compute'")
+        if self.compute_dtype not in VALID_DTYPES:
+            raise ValueError(f"Unknown compute dtype '{self.compute_dtype}'"
+                             f". Valid: {', '.join(VALID_DTYPES)}")
         if self.device_cache not in ("auto", "on", "off", "hybrid",
                                      "sharded"):
             raise ValueError(f"Unknown device_cache mode "

@@ -15,11 +15,9 @@ from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
-
-def _f32(x: torch.Tensor) -> torch.Tensor:
-    """At least float32: half types go up, float64 (a reference run)
-    stays."""
-    return x.to(torch.promote_types(x.dtype, torch.float32))
+# every loss reads its inputs at least in float32, as the JAX losses cast
+# theirs: half types go up, float64 (a reference run) stays
+from srl_zoo_tpu_torch.models.precision import at_least_f32 as _f32
 
 
 def _masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

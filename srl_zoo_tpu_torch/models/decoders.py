@@ -1,4 +1,6 @@
-"""CNNDecoder (port of ``srl_zoo_tpu/models/decoders.py`` CNNDecoder).
+"""CNNDecoder and DenseDecoder (port of ``srl_zoo_tpu/models/decoders.py``).
+
+CNNDecoder:
 
     Dense(state slice -> (H/32)(W/32)64) -> relu -> reshape NHWC
     4 x [ConvTranspose(4, stride 2) -> BatchNorm -> relu], widths 64 64 32 16
@@ -14,16 +16,29 @@ permuted to (in, out, kh, kw) and flipped on both spatial axes
 (:func:`deconv_weight_from_flax`); both give 2H x 2W. The deconvolutions
 keep their bias, as flax's do by default.
 
-The output is NCHW in channels_last memory; ``.permute(0, 2, 3, 1)`` is its
-NHWC view, the layout of the reconstruction target.
+DenseDecoder, the decoder of the mlp and linear model types:
+
+    Dense(state slice -> 64) -> relu -> Dense(64 -> H W C) -> reshape NHWC
+    -> tanh
+
+Both outputs are NCHW in channels_last memory; ``.permute(0, 2, 3, 1)`` is
+their NHWC view, the layout of the reconstruction target. At the compute
+dtype bfloat16 (models/precision.py) the Dense layers and deconvolutions
+but the last run in bfloat16, CNNDecoder's BatchNorms return bfloat16, and
+each decoder's last layer (ConvTranspose_4, Dense_1) promotes its input to
+float32, as the JAX modules build it: the reconstruction is float32.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
 
 from srl_zoo_tpu_torch.models.batchnorm import BatchNorm
+from srl_zoo_tpu_torch.models.mlp import MLP
+from srl_zoo_tpu_torch.models.precision import at_least_f32, deconv, dense
 
 WIDTHS = (64, 64, 32, 16)
 SEED_CHANNELS = 64
@@ -37,8 +52,10 @@ def deconv_weight_from_flax(kernel: torch.Tensor) -> torch.Tensor:
 
 class CNNDecoder(nn.Module):
     def __init__(self, in_dim: int, img_height: int, img_width: int,
-                 out_channels: int = 3, bn_momentum: float = 0.9):
+                 out_channels: int = 3, bn_momentum: float = 0.9,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.compute_dtype = dtype
         self.h0, self.w0 = img_height // 32, img_width // 32
         if self.h0 * 32 != img_height or self.w0 * 32 != img_width:
             raise ValueError("CNNDecoder needs image sides divisible by 32, "
@@ -58,10 +75,26 @@ class CNNDecoder(nn.Module):
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         """z (B, d) -> reconstruction (B, C, H, W), channels_last, in
         [-1, 1]."""
-        x = torch.relu(self.fc(z))
+        dt = self.compute_dtype
+        x = torch.relu(dense(self.fc, z, dt))
         # flax reshapes to NHWC: the NCHW view of that is channels_last
         x = x.reshape(z.shape[0], self.h0, self.w0, SEED_CHANNELS
                       ).permute(0, 3, 1, 2)
-        for deconv, bn in zip(self.deconvs, self.bns):
-            x = torch.relu(bn(deconv(x)))
-        return torch.tanh(self.deconvs[-1](x))
+        for layer, bn in zip(self.deconvs, self.bns):
+            x = torch.relu(bn(deconv(layer, x, dt)))
+        return torch.tanh(self.deconvs[-1](at_least_f32(x)))
+
+
+class DenseDecoder(MLP):
+    def __init__(self, in_dim: int, img_height: int, img_width: int,
+                 out_channels: int = 3, hidden: int = 64,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__([in_dim, hidden,
+                          img_height * img_width * out_channels], dtype)
+        self.shape = (img_height, img_width, out_channels)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        """z (B, d) -> reconstruction (B, C, H, W), channels_last, in
+        [-1, 1]."""
+        x = super().forward(z).reshape(z.shape[0], *self.shape)
+        return torch.tanh(x).permute(0, 3, 1, 2)

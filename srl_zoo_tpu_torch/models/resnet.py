@@ -21,15 +21,23 @@ same convolution regrouped space-to-depth for the TPU's matrix unit
 either. Activations stay channels_last in memory, so the stem pool (the
 fused relu + pool kernel, ops/fused_pool.py) reads the BatchNorm output in
 place.
+
+At the compute dtype bfloat16 (models/precision.py) every convolution
+casts its input and kernel, BatchNorm returns bfloat16, the residual sum,
+the stem pool and the global mean run on bfloat16, and ``fc`` promotes its
+input to float32, as the JAX module's ``dtype=jnp.float32`` Dense does.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from srl_zoo_tpu_torch.models.batchnorm import BatchNorm
+from srl_zoo_tpu_torch.models.precision import conv, dense_f32
 from srl_zoo_tpu_torch.ops.fused_pool import relu_max_pool
 
 STEM_POOL_PADS = ((1, 1), (1, 1))
@@ -39,8 +47,10 @@ BLOCKS_PER_LAYER = 2
 
 class BasicBlock(nn.Module):
     def __init__(self, in_channels: int, width: int, stride: int,
-                 bn_momentum: float = 0.9):
+                 bn_momentum: float = 0.9,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.compute_dtype = dtype
         self.conv1 = nn.Conv2d(in_channels, width, 3, stride=stride,
                                padding=1, bias=False)
         self.bn1 = BatchNorm(width, bn_momentum)
@@ -53,16 +63,20 @@ class BasicBlock(nn.Module):
             BatchNorm(width, bn_momentum)) if in_channels != width else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
-        residual = x if self.downsample is None else self.downsample(x)
+        dt = self.compute_dtype
+        y = F.relu(self.bn1(conv(self.conv1, x, dt)))
+        y = self.bn2(conv(self.conv2, y, dt))
+        residual = x if self.downsample is None else self.downsample[1](
+            conv(self.downsample[0], x, dt))
         return F.relu(y + residual)
 
 
 class ResNet18(nn.Module):
     def __init__(self, state_dim: int, in_channels: int = 3,
-                 bn_momentum: float = 0.9):
+                 bn_momentum: float = 0.9,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.compute_dtype = dtype
         self.conv1 = nn.Conv2d(in_channels, WIDTHS[0], 7, stride=2,
                                padding=3, bias=False)
         self.bn1 = BatchNorm(WIDTHS[0], bn_momentum)
@@ -71,7 +85,8 @@ class ResNet18(nn.Module):
             blocks = []
             for b in range(BLOCKS_PER_LAYER):
                 stride = 2 if i > 0 and b == 0 else 1
-                blocks.append(BasicBlock(c, width, stride, bn_momentum))
+                blocks.append(BasicBlock(c, width, stride, bn_momentum,
+                                         dtype))
                 c = width
             setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
         self.fc = nn.Linear(c, state_dim)
@@ -80,10 +95,11 @@ class ResNet18(nn.Module):
         """x: normalized float (B, H, W, C) -> (B, state_dim). The stem pool
         is differentiable (ops/fused_pool.py): in training its backward
         reads the forward's argmax plane."""
-        x = self.bn1(self.conv1(x.permute(0, 3, 1, 2)))
+        x = self.bn1(conv(self.conv1, x.permute(0, 3, 1, 2),
+                          self.compute_dtype))
         y = relu_max_pool(x.permute(0, 2, 3, 1).contiguous(),
                           padding=STEM_POOL_PADS)
         x = y.permute(0, 3, 1, 2)
         for i in range(len(WIDTHS)):
             x = getattr(self, f"layer{i + 1}")(x)
-        return self.fc(x.mean(dim=(2, 3)))
+        return dense_f32(self.fc, x.mean(dim=(2, 3)))

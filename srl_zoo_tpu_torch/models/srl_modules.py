@@ -18,6 +18,12 @@ the ``discriminator`` head, which ``discriminate(s1, s2)`` applies; the
 train step calls it (JAX's ``disc_probe`` output, which only makes flax
 create the head's parameters, has no counterpart).
 
+Every submodule computes at the config's compute dtype (``--dtype``,
+models/precision.py): the encoder, the decoder (``DenseDecoder`` for the
+mlp and linear model types, ``CNNDecoder`` for the others), the heads and
+the discriminator. Each ends in a float32 layer, so the states, the
+reconstruction and the logits are float32 at either dtype.
+
 The encoder passes run in the JAX module's order: obs, next obs, positive,
 negative. In train mode each pass folds its batch statistics into
 BatchNorm's running averages, so the order decides the exported states.
@@ -38,10 +44,11 @@ import torch
 from torch import nn
 
 from srl_zoo_tpu_torch.config import SRLConfig
-from srl_zoo_tpu_torch.models.decoders import CNNDecoder
+from srl_zoo_tpu_torch.models.decoders import CNNDecoder, DenseDecoder
 from srl_zoo_tpu_torch.models.encoders import make_encoder
 from srl_zoo_tpu_torch.models.heads import (Discriminator, ForwardModel,
                                             InverseModel, RewardModel)
+from srl_zoo_tpu_torch.models.precision import compute_dtype
 
 
 def slice_state(state: torch.Tensor, sl) -> torch.Tensor:
@@ -54,28 +61,36 @@ class SRLModules(nn.Module):
     def __init__(self, cfg: SRLConfig):
         super().__init__()
         self.cfg = cfg
+        dt = compute_dtype(cfg.compute_dtype)
         out_dim = 2 * cfg.state_dim if cfg.use_vae else cfg.state_dim
         self.encoder = make_encoder(cfg.model_type, out_dim, cfg.n_channels,
                                     cfg.img_height, cfg.img_width,
-                                    cfg.bn_momentum)
+                                    cfg.bn_momentum, dt)
         slices = cfg.slices
         if cfg.use_decoder:
             self.recon_slice = cfg.recon_slice
-            self.decoder = CNNDecoder(self.recon_slice[1], cfg.img_height,
-                                      cfg.img_width, cfg.n_channels,
-                                      cfg.bn_momentum)
+            if cfg.model_type in ("mlp", "linear"):
+                self.decoder = DenseDecoder(self.recon_slice[1],
+                                            cfg.img_height, cfg.img_width,
+                                            cfg.n_channels, dtype=dt)
+            else:
+                self.decoder = CNNDecoder(self.recon_slice[1],
+                                          cfg.img_height, cfg.img_width,
+                                          cfg.n_channels, cfg.bn_momentum,
+                                          dt)
         mlp = cfg.inverse_model_type == "mlp"
         if cfg.use_forward:
             self.forward_model = ForwardModel(slices["forward"][1],
-                                              cfg.n_actions, mlp)
+                                              cfg.n_actions, mlp, dt)
         if cfg.use_inverse:
             self.inverse_model = InverseModel(slices["inverse"][1],
-                                              cfg.n_actions, mlp)
+                                              cfg.n_actions, mlp, dt)
         if cfg.use_reward:
             self.reward_model = RewardModel(slices["reward"][1],
-                                            cfg.n_reward_classes)
+                                            cfg.n_reward_classes, dt)
         if cfg.use_episode_prior:
-            self.discriminator = Discriminator(slices["episode-prior"][1])
+            self.discriminator = Discriminator(slices["episode-prior"][1],
+                                               dt)
 
     def _encode_raw(self, obs: torch.Tensor):
         """(mu, logvar) with the VAE active, else (state, None)."""

@@ -26,7 +26,8 @@ multiple of 16 bytes and the tensors start 16-byte aligned (the main
 path's C = 64 in channels_last memory), and a scalar path in the same
 source for any other shape. Each wrapper counts its launches
 (``launches``) and, beside them, its vector-path launches
-(``vector_launches``).
+(``vector_launches``) and its bfloat16 launches (``bf16_launches``: the
+``--dtype bfloat16`` models' pools).
 """
 
 from __future__ import annotations
@@ -168,6 +169,7 @@ def _fwd_kernel(x: torch.Tensor, padding, with_index: bool):
     _build.check(code, "relu_max_pool")
     relu_max_pool.launches += 1
     relu_max_pool.vector_launches += vector
+    relu_max_pool.bf16_launches += x.dtype == torch.bfloat16
     return y, idx
 
 
@@ -203,6 +205,7 @@ def relu_max_pool_bwd(g: torch.Tensor, idx: torch.Tensor, x_shape,
     _build.check(code, "relu_max_pool_bwd")
     relu_max_pool_bwd.launches += 1
     relu_max_pool_bwd.vector_launches += vector
+    relu_max_pool_bwd.bf16_launches += g.dtype == torch.bfloat16
     return dx
 
 
@@ -253,5 +256,7 @@ def relu_max_pool(x: torch.Tensor, padding="SAME", with_index: bool = False):
 
 relu_max_pool.launches = 0
 relu_max_pool.vector_launches = 0
+relu_max_pool.bf16_launches = 0
 relu_max_pool_bwd.launches = 0
 relu_max_pool_bwd.vector_launches = 0
+relu_max_pool_bwd.bf16_launches = 0

@@ -21,8 +21,9 @@ forward, inverse, reward (``--inverse-model-type``), triplet,
 episode-prior (``--episode-prior-optimizer``), reward-prior, supervised
 (its slice as wide as the ground truth) and random (no training: the
 initial model is exported), with ``--grad-accum`` micro-steps per Adam
-step, on the custom_cnn or the resnet (ResNet-18,
-``--pretrained-weights`` from a torchvision state dict) encoder;
+step, on the custom_cnn, resnet (ResNet-18, ``--pretrained-weights`` from
+a torchvision state dict), mlp or linear encoder, computing in float32 or
+(``--dtype bfloat16``) bfloat16;
 ``--multi-view`` reads a two-camera dataset (``frames_2.npy``): triplet
 takes the second view as its positive, any other loss stacks both views
 into a 6-channel input. Flags of features the port does not run yet raise

@@ -27,12 +27,19 @@ def resolve_device(device=None) -> torch.device:
 
 
 def use_strict_float32() -> None:
-    """Run float32 convolutions and products in full float32.
+    """Run float32 convolutions and products in full float32, and reduce
+    bfloat16 products in float32.
 
     cuDNN convolutions default to TF32 (about three decimal digits); the
-    JAX reference computes float32 configs in float32."""
+    JAX reference computes float32 configs in float32. cuBLAS may reduce
+    the partial sums of a split-K bfloat16 product in bfloat16
+    (``allow_bf16_reduced_precision_reduction``, on by default); XLA
+    accumulates a bfloat16 product in float32 and rounds once, so the
+    switch is turned off for the ``--dtype bfloat16`` configs."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
 
 
 def upload(array, device: torch.device,

@@ -559,7 +559,7 @@ def test_pipeline_bad_grid_value_exits_before_training(pipe_dataset,
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--dtype", "bfloat16"], "queue A item 2"),
+    (["--device-cache", "off"], "queue A item 6"),
     (["--device-cache", "hybrid"], "queue A item 6"),
     (["--device-cache", "sharded"], "queue A item 8"),
 ])
@@ -569,6 +569,26 @@ def test_pipeline_refuses_through_the_train_cli(pipe_dataset, tmp_path,
         _pipeline(["--data-folder", pipe_dataset, *PIPE_FLAGS, *flags],
                   tmp_path, monkeypatch)
     assert os.listdir(tmp_path / "logs" / "synth") == []
+
+
+def test_pipeline_passes_the_dtype_and_model_types_to_its_cells(
+        pipe_dataset, tmp_path, monkeypatch):
+    """``--dtype bfloat16`` reaches each cell's train CLI, and the dense
+    model types run as cells: each cell's ``exp_config.json`` records
+    the compute dtype and its model type, and it is scored."""
+    results = _pipeline(["--data-folder", pipe_dataset, *PIPE_FLAGS,
+                         "--dtype", "bfloat16", "--no-grids",
+                         "--model-types", "custom_cnn", "mlp"], tmp_path,
+                        monkeypatch)
+    assert [r["model_type"] for r in results] == ["custom_cnn", "mlp"]
+    for r in results:
+        with open(os.path.join(tmp_path, r["log_folder"],
+                               "exp_config.json")) as f:
+            cfg = json.load(f)
+        assert (cfg["compute-dtype"], cfg["model-type"]) == (
+            "bfloat16", r["model_type"])
+        assert np.isfinite(r["knn_mse"]) and 0.0 <= r["reward_accuracy"] \
+            <= 1.0
 
 
 def test_pipeline_needs_a_gpu_before_any_write(pipe_dataset, tmp_path,

@@ -1,8 +1,9 @@
 """Trained quality of the port against the JAX package, on the CPU.
 
 Configs 1 (autoencoder), 2 (vae), 3 (priors) and 5 (triplet, ResNet-18,
-two camera views), the denoising autoencoder (dae), and the reward prior
-and the episode prior each beside the autoencoder, train in both packages
+two camera views), the denoising autoencoder (dae), the reward prior
+and the episode prior each beside the autoencoder, and the autoencoder
+on the mlp model type (DenseEncoder, DenseDecoder), train in both packages
 with the golden settings of ``tests/test_golden.py`` (4 epochs, lr 3e-3,
 batch 16, state_dim 4, seed 1) on the 32 px synthetic datasets, from the
 same initial weights (JAX's init, carried into the port by
@@ -11,7 +12,8 @@ same initial weights (JAX's init, carried into the port by
 * pass JAX's own golden gates unchanged: autoencoder KNN-MSE < 0.02 and
   GTC > 0.7, priors KNN-MSE < 0.03, VAE KNN-MSE < 0.025 and GTC > 0.55,
   triplet KNN-MSE < 0.02, DAE KNN-MSE < 0.04 and GTC > 0.5, reward prior
-  KNN-MSE < 0.04 and GTC > 0.55 (KNN-MSE with k = 3, as the gates take
+  KNN-MSE < 0.04 and GTC > 0.55, mlp KNN-MSE < 0.04 and GTC > 0.4
+  (``test_golden_mlp_quality``) (KNN-MSE with k = 3, as the gates take
   it), and the episode prior's last train discriminator BCE within 0.12
   of ln 2;
 * score within ``TOLERANCE`` of JAX's KNN-MSE and GTC.
@@ -34,6 +36,7 @@ the tests run), JAX with the two-pass BatchNorm variance (see
     dae          0.01937    0.7576    0.01168     0.1102
     reward-prior 0.03495    0.7327    0.008357    0.03616
     episode-prior 0.00732   0.6439    0.008692    0.1485
+    mlp          0.01533    0.5738    0           3.201e-05
 
 (TOLERANCE holds twice these spreads.) The port's scores in the same
 runs, beside these, are in PERF.md's findings.
@@ -62,14 +65,18 @@ CONFIGS = {"autoencoder": (("autoencoder",), False),
            "vae": (("vae",), False), "priors": (("priors",), False),
            "triplet": (("triplet",), True), "dae": (("dae",), False),
            "reward-prior": (("reward-prior", "autoencoder"), False),
-           "episode-prior": (("episode-prior", "autoencoder"), False)}
+           "episode-prior": (("episode-prior", "autoencoder"), False),
+           "mlp": (("autoencoder",), False)}
+# the configs on another model type than custom_cnn (triplet's ResNet-18
+# comes with its two views)
+MODEL_TYPES = {"mlp": "mlp"}
 # the configs whose noise each package draws from its own generator
 NOISY = ("vae", "dae")
 # JAX's golden gates (tests/test_golden.py): KNN-MSE below, GTC above
 GATES = {"autoencoder": (0.02, 0.7), "vae": (0.025, 0.55),
          "priors": (0.03, None), "triplet": (0.02, None),
          "dae": (0.04, 0.5), "reward-prior": (0.04, 0.55),
-         "episode-prior": (None, None)}
+         "episode-prior": (None, None), "mlp": (0.04, 0.4)}
 # the episode prior's gate: its last train discriminator BCE within this
 # of ln 2, the equilibrium of a discriminator that can no longer tell
 DISC_GATE = 0.12
@@ -77,13 +84,14 @@ DISC_GATE = 0.12
 TOLERANCE = {"autoencoder": (0.01057, 0.0349), "vae": (0.0234, 0.1526),
              "priors": (0.004604, 0.1643), "triplet": (0.03966, 0.6554),
              "dae": (0.02336, 0.2204), "reward-prior": (0.01671, 0.07232),
-             "episode-prior": (0.01738, 0.297)}
+             "episode-prior": (0.01738, 0.297), "mlp": (0.0, 6.402e-5)}
 
 
 def _jax_cfg(name, ds):
     from srl_zoo_tpu.config import SRLConfig as JaxConfig
     losses, two_views = CONFIGS[name]
-    views = {"model_type": "resnet", "multi_view": True} if two_views else {}
+    views = {"model_type": "resnet", "multi_view": True} if two_views \
+        else {"model_type": MODEL_TYPES.get(name, "custom_cnn")}
     return JaxConfig(state_dim=STATE_DIM, img_height=32, img_width=32,
                      batch_size=BS, epochs=EPOCHS, learning_rate=LR,
                      losses=tuple((n, 1.0) for n in losses),

@@ -324,15 +324,24 @@ def test_pretrained_weights_equal_the_jax_port(fmt, tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# refusals
+# the encoder factory
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("model_type", ["mlp", "linear"])
-def test_dense_encoders_still_name_their_roadmap_item(model_type):
-    from srl_zoo_tpu_torch.models.encoders import make_encoder
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
-        SRLConfig(model_type=model_type)
+def test_make_encoder_builds_the_dense_encoders(model_type):
+    """The mlp and linear model types, once refused, build their encoders
+    (tests/test_torch_zoo_dense.py holds them against JAX); an unknown
+    type still raises."""
+    from srl_zoo_tpu_torch.models.encoders import (DenseEncoder,
+                                                   LinearEncoder,
+                                                   make_encoder)
+    assert SRLConfig(model_type=model_type).model_type == model_type
+    enc = make_encoder(model_type, STATE_DIM, 6, PX, PX)
+    assert type(enc) is {"mlp": DenseEncoder,
+                         "linear": LinearEncoder}[model_type]
+    assert enc.layers[0].in_features == PX * PX * 6
+    assert enc(torch.zeros(2, PX, PX, 6)).shape == (2, STATE_DIM)
     with pytest.raises(ValueError, match="Unknown model type"):
-        make_encoder(model_type, STATE_DIM, 3, PX, PX)
+        make_encoder("vgg", STATE_DIM, 3, PX, PX)
     assert isinstance(make_encoder("resnet", STATE_DIM, 6, PX, PX),
                       ResNet18)

@@ -342,6 +342,13 @@ def test_resolve_device_none_raises_without_a_gpu():
 
 
 @pytest.mark.parametrize("model_type", ["mlp", "linear"])
-def test_config_names_the_roadmap_item_of_unported_models(model_type):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        SRLConfig(model_type=model_type)
+def test_config_takes_the_dense_model_types(model_type):
+    """The mlp and linear types, once refused, configure at either
+    compute dtype; an unknown type or dtype still raises."""
+    for dtype in ("float32", "bfloat16"):
+        cfg = SRLConfig(model_type=model_type, compute_dtype=dtype)
+        assert (cfg.model_type, cfg.compute_dtype) == (model_type, dtype)
+    with pytest.raises(ValueError, match="Unknown model type"):
+        SRLConfig(model_type=f"{model_type}2")
+    with pytest.raises(ValueError, match="Unknown compute dtype"):
+        SRLConfig(model_type=model_type, compute_dtype="float16")

@@ -1055,8 +1055,8 @@ def test_exp_config_round_trips_between_the_packages(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--model-type", "mlp"], "item 5"),
-    (["--dtype", "bfloat16"], "item 2"),
+    (["--device-cache", "hybrid"], "item 6"),
+    (["--stream-overlap"], "item 6"),
     (["--balanced-sampling"], "item 6"),
     (["--device-cache", "off"], "item 6"),
     (["--num-processes", "2"], "item 8"),
