@@ -34,7 +34,9 @@ prints its wall time:
    256 random rows of
    a 20,000-frame 224x224x3 store from a host index and of 32 rows (the
    training batch), both modes, within 1e-6 on the vector path, device
-   and wrapper time; then at edge shapes (9x13 frames of C 1, 3, 4, 6 and
+   and wrapper time; over the identity index (a streamed batch's
+   normalize) at (32, 224, 224, 3) and (32, 224, 224, 6), the same way;
+   then at edge shapes (9x13 frames of C 1, 3, 4, 6 and
    8, 16x16x1, one frame, B 1 and 7, store slices at offsets 1 and 4),
    each on the path it selects, and IndexError for -1 and N from host
    and CUDA indices. Under ``torch.cuda.set_sync_debug_mode("error")``,
@@ -136,6 +138,32 @@ prints its wall time:
    and K4 and no pool. 8 bf16 steps each of configs 1 and 5 are
    profiled beside their f32 profiles, the pools' inputs checked to be
    channels_last bf16.
+4b. The data layer at the same width (224x224x3, state_dim 200, batch
+   32). 1,024 frames of phase 4's scene (both views, four episodes) are
+   recorded as JPEG episodes with ``DatasetRecorder`` and preprocessed
+   (the schema must give back the scene's actions, ground truth and
+   shifted rewards). Under the sync debug mode, whole streamed train
+   steps of config 1 (the copy to the card included), with and without
+   ``--stream-overlap``'s copy stream, a slot-addressed step of config 3
+   on a hybrid store and its adoption of a streamed batch must not
+   synchronise. Then the train CLI runs config 1 with
+   ``--device-cache off`` from the recorded JPEGs (no ``frames.npy``;
+   then both views' frames caches are built from the JPEGs and held
+   against the scene's pixels: largest and mean error, the mean within
+   3 levels) and from phase 4's memmap, with and without
+   ``--stream-overlap``; config 5 (triplet, ResNet-18, two views) with
+   ``--device-cache hybrid`` for 3 epochs under a
+   ``SRL_ZOO_CACHE_BUDGET_MB`` of 2,048 of the 4,096 rows (the store
+   invariant after training, every resident row's slot holding its
+   frame in both views, and the hybrid export against a whole-store
+   export, 1e-5 of the largest |state|); and config 3 with
+   ``--balanced-sampling`` for 2 epochs. Each run zeroes the launch
+   counts just before and reads them just after (K1f, K1b and K2 must
+   have run, on the vector path), splits K2's launches by the kind of
+   batch (the streamed runs only streamed, the hybrid run streamed and
+   by slot), and prints images/s by epoch and by phase (the learner's
+   synchronised phase timing: hot, cold, adoption, rotation with its
+   swept rows) and which routes of the native runtime served.
 5. The pipeline at full width: BASELINE config 5 (triplet, ResNet-18,
    ``--multi-view``, 224x224x3, state_dim 200, batch 32, 2 epochs, seeds
    1 and 2) through ``srl_zoo_tpu_torch.pipeline.main`` on phase 4's
@@ -165,6 +193,9 @@ index where that tree's wrapper takes no host index), and prints a
 ``{"tree": ..., "pool_times": [...], "kernel_times": [...]}`` line and the
 card, so that the device times of two trees' kernels can be compared in
 one run on one card.
+
+With ``--data-layer`` it runs phase 2's K2 over the identity index and
+phase 4b alone, on a freshly written phase 4 dataset.
 
 With ``--step-seeds N`` it runs only phase 4's card-vs-CPU step of the
 two ResNet configs and the two bf16 configs at seeds 0..N-1, holds
@@ -275,6 +306,12 @@ CLI_FLAG = {"noise_type": "--noise-type",
 U_BF16 = 2.0 ** -9
 INFERENCE_KERNELS = ("relu_max_pool", "gather_normalize", "knn_topk",
                      "pairwise_sqdist")
+# phase 4b: the data layer. DATA_FRAMES frames of phase 4's scene are
+# recorded as JPEGs; the hybrid run keeps HYBRID_ROWS of the 4,096 rows
+# resident (about half) for DATA_EPOCHS_HYBRID epochs
+DATA_FRAMES = 1024
+HYBRID_ROWS = TRAIN_FRAMES // 2
+DATA_EPOCHS_HYBRID = 3
 # phase 5: BASELINE config 5 through the pipeline, at two seeds (epochs
 # cut from 30, as in phase 4)
 PIPELINE_SEEDS = (1, 2)
@@ -736,6 +773,39 @@ def check_gather(store, dev, times: list) -> dict:
             res = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain,
                    "bytes": nbytes, "ops": ops, "err": err}
     return res
+
+
+def check_gather_streamed(dev, g, times: list) -> None:
+    """K2 over the identity index, as a streamed batch is normalized: the
+    training batch (32) of 3 and of 6 (two views stacked) channels,
+    within 1e-6 of the plain version, on the vector path, timed beside
+    its bound."""
+    import torch
+    from srl_zoo_tpu_torch.ops.gather_norm import (gather_normalize,
+                                                   gather_normalize_plain)
+    from srl_zoo_tpu_torch.training.train_step import normalize_streamed
+    for c in (3, 6):
+        u8 = torch.randint(0, 256, (TRAIN_BATCH, IMG[0], IMG[1], c),
+                           generator=g, device=dev, dtype=torch.uint8)
+        out, path = path_of(gather_normalize, lambda: normalize_streamed(
+            u8, "tf", dev))
+        ident = torch.arange(TRAIN_BATCH, device=dev)
+        err = float((out - gather_normalize_plain(u8, ident)).abs().max())
+        if err > 1e-6 or path != "vector":
+            raise AssertionError(f"K2 identity C={c}: err {err}, {path}")
+        call = lambda: normalize_streamed(u8, "tf", dev)  # noqa: E731
+        dev_ms = device_ms(call, "gather_norm")
+        ms = time_ms(call, iters=WRAPPER_CALLS)
+        plain = time_ms(lambda: gather_normalize_plain(u8, ident))
+        b, by = bound(out.numel() * 5 + TRAIN_BATCH * 8, 2 * out.numel())
+        log(f"K2 over the identity index (a streamed batch) "
+            f"{tuple(u8.shape)}: max err {err:.3g}, {path} path; device "
+            f"{dev_ms:.4f} ms, wrapper {ms:.4f} ms (plain {plain:.4f} ms), "
+            f"bound {b:.4f} ms by {by}: {100 * b / dev_ms:.1f}% of the "
+            "bound in device time")
+        times.append({"kernel": "K2", "shape": list(u8.shape),
+                      "mode": "tf identity", "device_ms": dev_ms, "ms": ms,
+                      "plain_ms": plain, "bound_ms": b})
 
 
 def check_gather_edges(store, dev, g) -> None:
@@ -2047,6 +2117,346 @@ def run_training(data_folder: str, run_dir: str, dev, counters, name: str,
 
 
 # ---------------------------------------------------------------------------
+# phase 4b: the data layer
+# ---------------------------------------------------------------------------
+
+def record_scene(src: str, folder: str) -> None:
+    """DATA_FRAMES frames of phase 4's scene (both views, its first
+    episodes) recorded as episodes with the port's DatasetRecorder (JPEG
+    quality 90), then preprocessed into the training schema (no frames
+    cache yet); the schema must give back the scene's actions, ground
+    truth and rewards (the last shifted by the recording convention:
+    reward of acting at t, 0 at an episode's start)."""
+    from srl_zoo_tpu_torch.data.record import DatasetRecorder
+    from srl_zoo_tpu_torch.data.schema import load_dataset
+    from srl_zoo_tpu_torch.preprocessing.preprocess import preprocess_folder
+    ds = load_dataset(src)
+    ep_len = TRAIN_FRAMES // TRAIN_EPISODES
+    rec = DatasetRecorder(folder)
+    for e in range(DATA_FRAMES // ep_len):
+        rec.new_episode()
+        rows = np.arange(e * ep_len, (e + 1) * ep_len)
+        acting = np.append(ds.rewards[rows[1:]], 0.0)
+        for i, r in zip(rows, acting):
+            rec.record(ds.frames[i], ds.actions[i], r,
+                       ds.ground_truth_states[i], obs_2=ds.frames_2[i])
+    rec.close()
+    preprocess_folder(folder)
+    got = load_dataset(folder)
+    rows = np.arange(DATA_FRAMES)
+    starts = got.episode_starts
+    if got.n_samples != DATA_FRAMES or got.images_path_2 is None or \
+            not np.array_equal(got.actions, ds.actions[rows]) or \
+            not np.array_equal(got.ground_truth_states,
+                               ds.ground_truth_states[rows]) or \
+            not np.array_equal(got.rewards[~starts],
+                               ds.rewards[rows][~starts]) or \
+            got.rewards[starts].any():
+        raise AssertionError("the recorded and preprocessed dataset differs "
+                             "from the scene")
+
+
+def check_jpeg_cache(src: str, folder: str) -> None:
+    """Both views' frames caches built from the recorded JPEGs, held
+    against the scene's pixels: the largest and the mean absolute error
+    of JPEG quality 90 (the mean within 3 levels)."""
+    from srl_zoo_tpu_torch import native
+    from srl_zoo_tpu_torch.data.schema import load_dataset
+    from srl_zoo_tpu_torch.preprocessing.preprocess import \
+        refresh_frames_caches
+    native.reset_counts()
+    t0 = time.perf_counter()
+    refresh_frames_caches(folder, IMG[0])
+    secs = time.perf_counter() - t0
+    ds, got = load_dataset(src), load_dataset(folder)
+    for name in ("frames", "frames_2"):
+        a = np.asarray(getattr(got, name), np.int16)
+        b = np.asarray(getattr(ds, name)[:DATA_FRAMES], np.int16)
+        err = np.abs(a - b)
+        log(f"frames cache {name}.npy from {DATA_FRAMES} JPEGs: largest "
+            f"error {int(err.max())}, mean {float(err.mean()):.4f} levels")
+        if a.shape != b.shape or not float(err.mean()) <= 3.0:
+            raise AssertionError(f"{name}.npy: {a.shape} or mean error "
+                                 f"{float(err.mean())}")
+    log(f"both frames caches ({2 * DATA_FRAMES} images) built in "
+        f"{secs:.1f} s by {decoders(native.counts)}")
+
+
+def decoders(counts: dict) -> str:
+    """Which routes of the native runtime served, with their images."""
+    return ", ".join(f"{k} {v}" for k, v in counts.items() if v) or "none"
+
+
+def check_streamed_no_sync(data_folder: str, dev) -> None:
+    """Under ``set_sync_debug_mode("error")``: whole streamed train steps
+    of config 1 (the batch's copy to the card, K2 over the identity index,
+    forward, loss, backward, Adam), with and without the copy stream of
+    ``--stream-overlap``; a train step of config 3 on a hybrid store's
+    slot batch; and the store's adoption of a streamed batch of entering
+    rows. The batches are assembled in pinned memory first (the loader's
+    producer thread), and each kind of call runs once before, outside the
+    mode."""
+    import torch
+    from srl_zoo_tpu_torch.data.hybrid import RotatingHotStore
+    from srl_zoo_tpu_torch.data.loader import DataLoader, batch_flags
+    from srl_zoo_tpu_torch.data.schema import load_dataset
+    from srl_zoo_tpu_torch.data.transfer import stream_batches
+    from srl_zoo_tpu_torch.training.state import make_model, make_optimizer
+    from srl_zoo_tpu_torch.training.train_step import train_step
+    ds = load_dataset(data_folder)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    cfg1 = train_config(["autoencoder"], TRAIN_BATCH)
+    cfg3 = train_config(["priors"], TRAIN_BATCH)
+    m1, m3 = make_model(cfg1, dev), make_model(cfg3, dev)
+    o1, o3 = make_optimizer(cfg1, m1), make_optimizer(cfg3, m3)
+    rows = np.arange(TRAIN_BATCH * 6)
+    pinned = list(DataLoader(ds, rows, TRAIN_BATCH, shuffle=False,
+                             emit_images=True, pin_memory=True,
+                             **batch_flags(cfg1)))
+    hot = RotatingHotStore(ds, dev, cfg3, 2 * TRAIN_FRAMES // 4)
+    hot.begin_epoch()
+    slot_rows = np.nonzero(hot.trainable_mask(np.arange(TRAIN_FRAMES - 1)))[0]
+    slot_batch = next(iter(DataLoader(ds, slot_rows, TRAIN_BATCH,
+                                      slot_map=hot.slot_of,
+                                      **batch_flags(cfg3))))
+    entering = list(stream_batches(DataLoader(
+        ds, hot._entering[:2 * TRAIN_BATCH], TRAIN_BATCH, shuffle=False,
+        emit_images=True, pin_memory=True, **batch_flags(cfg3)), dev))
+
+    def streamed(batches, overlap):
+        for b in stream_batches(batches, dev, overlap):
+            train_step(m1, o1, None, b, gen)
+
+    calls = [("streamed train_step of autoencoder (batch 0)",
+              lambda: streamed(pinned[:1], False)),
+             ("streamed train_steps with --stream-overlap (batches 1-2)",
+              lambda: streamed(pinned[1:3], True)),
+             ("slot-addressed train_step of priors", lambda: train_step(
+                 m3, o3, hot.cache, slot_batch, gen)),
+             ("adoption of a streamed batch of entering rows",
+              lambda: hot.maybe_adopt(entering[0]["indices"], entering[0]))]
+    for _, call in calls:  # first-use work, outside the mode
+        call()
+    calls[0] = ("streamed train_step of autoencoder (batch 3)",
+                lambda: streamed(pinned[3:4], False))
+    calls[1] = ("streamed train_steps with --stream-overlap (batches 4-5)",
+                lambda: streamed(pinned[4:6], True))
+    calls[3] = ("adoption of a streamed batch of entering rows",
+                lambda: hot.maybe_adopt(entering[1]["indices"], entering[1]))
+    torch.cuda.synchronize()
+    _check_no_sync(calls, dev)
+    torch.cuda.synchronize()
+    log(f"no synchronise under set_sync_debug_mode('error'): "
+        f"{', '.join(name for name, _ in calls)}")
+
+
+def k2_by_route(learner_mod):
+    """Wrap the learner's train and eval steps to split K2's launches by
+    the kind of batch a step took (``streamed``: uint8 pixels; ``slot``:
+    a hybrid store's slots; ``index``: the whole store's rows). Returns
+    the counts and the undo."""
+    from srl_zoo_tpu_torch.ops.gather_norm import gather_normalize
+    counts = {"streamed": 0, "slot": 0, "index": 0}
+    real = {f: getattr(learner_mod, f) for f in ("train_step", "eval_step")}
+
+    def split(fn, batch_at):
+        def step(*args, **kw):
+            batch = args[batch_at]
+            route = "streamed" if "obs" in batch else \
+                "slot" if "cache_slots" in batch else "index"
+            before = gather_normalize.launches
+            out = fn(*args, **kw)
+            counts[route] += gather_normalize.launches - before
+            return out
+        return step
+
+    learner_mod.train_step = split(real["train_step"], 3)
+    learner_mod.eval_step = split(real["eval_step"], 2)
+
+    def undo():
+        for f, fn in real.items():
+            setattr(learner_mod, f, fn)
+    return counts, undo
+
+
+def capture_learners():
+    """Hook ``SRL4robotics.learn`` to keep each learner the CLI builds and
+    to turn its synchronised phase timing on. Returns the list and the
+    undo."""
+    from srl_zoo_tpu_torch.training.learner import SRL4robotics
+    learners, real = [], SRL4robotics.learn
+
+    def learn(self, *args, **kw):
+        self.time_phases = True
+        learners.append(self)
+        return real(self, *args, **kw)
+    SRL4robotics.learn = learn
+
+    def undo():
+        SRL4robotics.learn = real
+    return learners, undo
+
+
+def phase_summary(log_rows, name: str) -> None:
+    """Per epoch: images/s of each train and validation phase, and the
+    seconds of the hybrid store's adoptions and of its rotation (sweep
+    rows)."""
+    for epoch in sorted({r["epoch"] for r in log_rows}):
+        rows = [r for r in log_rows if r["epoch"] == epoch]
+        parts = []
+        for r in rows:
+            if r["what"].startswith(("train", "val")):
+                parts.append(f"{r['what']} {r['rows']} rows "
+                             f"{r['rows'] / max(r['s'], 1e-9):.0f} img/s")
+        adopt = [r["s"] for r in rows if r["what"] == "adopt"]
+        adv = [r for r in rows if r["what"] == "advance"]
+        if adopt:
+            parts.append(f"{len(adopt)} adoptions {sum(adopt):.4f} s")
+        if adv:
+            parts.append(f"advance {adv[0]['s']:.4f} s ({adv[0]['rows']} "
+                         "rows swept)")
+        log(f"{name} epoch {epoch + 1}: " + "; ".join(parts))
+
+
+def run_data_config(data_folder: str, run_dir: str, counters, name: str,
+                    tokens, epochs: int, flags, model_kw=None,
+                    env=None) -> tuple:
+    """One run of the train CLI on the data layer's paths (``flags``,
+    ``env`` set around it), launch counts zeroed just before and read
+    just after; K1f, K1b and K2 must have launched. Prints images/s by
+    epoch (the CLI's metrics), by phase (synchronised phase timing) and
+    which decoders served. Returns (launches, K2 by route, learner)."""
+    from srl_zoo_tpu_torch import native
+    from srl_zoo_tpu_torch import train as train_cli
+    from srl_zoo_tpu_torch.training import learner as learner_mod
+    learners, undo_learn = capture_learners()
+    k2, undo_k2 = k2_by_route(learner_mod)
+    saved = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    native.reset_counts()
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    try:
+        train_cli.main(["--data-folder", data_folder, "--losses", *tokens,
+                        *cli_flags(model_kw or {}), "--state-dim",
+                        str(STATE_DIM), "-bs", str(TRAIN_BATCH), "--epochs",
+                        str(epochs), "--log-folder", run_dir, "--num-cpu",
+                        str(os.cpu_count() or 4), *flags])
+    finally:
+        undo_learn()
+        undo_k2()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    secs = time.perf_counter() - t0
+    launches = read_counts(counters, f"{name} data path")
+    if not all(launches[k] > 0 for k in POOL_KERNELS + ("gather_normalize",)):
+        raise AssertionError(f"{name}: a kernel never ran: {launches}")
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        ips = [round(json.loads(line)["images_per_sec"], 1) for line in f]
+    hist = np.load(os.path.join(run_dir, "loss_history.npz"))
+    states = np.load(os.path.join(run_dir, "states_rewards.npz"))["states"]
+    if not np.isfinite(hist["train/total"]).all() or \
+            not np.isfinite(states).all():
+        raise AssertionError(f"{name}: non-finite losses or states")
+    log(f"{name}: {' '.join(flags)}: train CLI ({epochs} epochs, export, "
+        f"GTC) in {secs:.1f} s; train images/s by epoch {ips}; K2 launches "
+        f"by batch {k2}; host runtime {decoders(native.counts)}")
+    phase_summary(learners[0].phase_log, name)
+    return launches, k2, learners[0]
+
+
+def check_hybrid_store(learner, dataset) -> None:
+    """The store invariant after training: every resident row's slot
+    holds that row's bytes, both views (compared in chunks on the card);
+    and the hybrid export (the CLI's states_rewards.npz, through the
+    rotated window and streaming) against an export from the whole store
+    (1e-5 of the largest |state|)."""
+    import torch
+    from srl_zoo_tpu_torch.data.device_cache import build_cache
+    from srl_zoo_tpu_torch.evaluation.predict_dataset import predict_states
+    from srl_zoo_tpu_torch.inference import StateEncoder
+    hot = learner._hot_store
+    if hot is None or not hot.rotate or hot.epoch != DATA_EPOCHS_HYBRID:
+        raise AssertionError(f"no rotating hybrid store after "
+                             f"{DATA_EPOCHS_HYBRID} epochs: {hot}")
+    resident = np.nonzero(hot.slot_of >= 0)[0]
+    dev = hot.cache["frames"].device
+    for name in ("frames", "frames_2"):
+        src = getattr(dataset, name)
+        for s in range(0, len(resident), 512):
+            r = resident[s:s + 512]
+            want = torch.from_numpy(np.asarray(src[r])).to(dev)
+            got = hot.cache[name][torch.from_numpy(
+                hot.slot_of[r].astype(np.int64)).to(dev)]
+            if not torch.equal(got, want):
+                raise AssertionError(f"hybrid store {name}: a resident "
+                                     "row's slot holds other bytes")
+    states = np.load(os.path.join(learner.log_folder,
+                                  "states_rewards.npz"))["states"]
+    encoder = StateEncoder(learner.cfg, learner.model.eval(), dev)
+    cached = predict_states(encoder, build_cache(dataset, dev))
+    err = float(np.abs(states - cached).max() / np.abs(cached).max())
+    log(f"hybrid store after {hot.epoch} epochs: {hot.hot_n}/{hot.n} rows "
+        f"resident, invariant holds for both views; {hot.adopted_rows} rows "
+        f"adopted from streamed batches, {hot.swept_rows} swept from the "
+        f"memmap; hybrid export vs whole-store export max err {err:.3g} of "
+        "the largest |state|")
+    if not err <= 1e-5:
+        raise AssertionError(f"hybrid export differs: {err}")
+
+
+def run_data_layer(data_folder: str, work: str, dev, counters) -> dict:
+    """Phase 4b: record and preprocess, stream, go hybrid, balance (see
+    the module note). Returns the launches summed over its runs."""
+    from srl_zoo_tpu_torch.data.schema import load_dataset
+    rec = f"{work}/recorded"
+    t0 = time.perf_counter()
+    record_scene(data_folder, rec)
+    log(f"{DATA_FRAMES} frames (two views) recorded and preprocessed in "
+        f"{time.perf_counter() - t0:.1f} s")
+    check_streamed_no_sync(data_folder, dev)
+    total = dict.fromkeys(counters, 0)
+    runs = (
+        ("config 1 from JPEGs", rec, ["autoencoder"],
+         ["--device-cache", "off"], {}, {}, 2),
+        ("config 1 from the memmap", data_folder, ["autoencoder"],
+         ["--device-cache", "off"], {}, {}, 2),
+        ("config 1 from the memmap, overlapped", data_folder,
+         ["autoencoder"], ["--device-cache", "off", "--stream-overlap"], {},
+         {}, 2),
+        ("config 5 hybrid", data_folder, ["triplet"],
+         ["--device-cache", "hybrid"], RESNET_VIEWS,
+         {"SRL_ZOO_CACHE_BUDGET_MB": str((HYBRID_ROWS + 0.5) * 2
+                                         * np.prod(IMG) / 2**20)},
+         DATA_EPOCHS_HYBRID),
+        ("config 3 balanced", data_folder, ["priors"],
+         ["--balanced-sampling"], {}, {}, 2),
+    )
+    for i, (name, folder, tokens, flags, model_kw, env, epochs) in \
+            enumerate(runs):
+        t0 = time.perf_counter()
+        launches, k2, learner = run_data_config(
+            folder, f"{work}/run{i}", counters, name, tokens, epochs, flags,
+            model_kw, env)
+        total = {k: total[k] + launches[k] for k in counters}
+        if "--device-cache" in flags and flags[1] == "off" and (
+                k2["streamed"] == 0 or k2["slot"] or k2["index"]):
+            raise AssertionError(f"{name}: K2 launches by batch {k2}")
+        if name == "config 5 hybrid":
+            if not (k2["streamed"] and k2["slot"]):
+                raise AssertionError(f"{name}: K2 did not launch on both "
+                                     f"streamed and slot batches: {k2}")
+            check_hybrid_store(learner, load_dataset(folder))
+        if name == "config 1 from JPEGs":
+            check_jpeg_cache(data_folder, rec)
+        log(f"phase 4b, {name} in {time.perf_counter() - t0:.1f} s")
+    return total
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the pipeline
 # ---------------------------------------------------------------------------
 
@@ -2187,13 +2597,44 @@ def kernels_only(card: str, tree: str) -> int:
     return 0
 
 
+def data_layer_only(card: str) -> int:
+    """K2 over the identity index (phase 2) and phase 4b alone, on a
+    freshly written phase 4 dataset, and the card."""
+    import torch
+    from srl_zoo_tpu_torch.ops import (fused_pool, gather_norm, knn_topk,
+                                       pairwise)
+    from srl_zoo_tpu_torch.utils.device import (resolve_device,
+                                                use_strict_float32)
+    dev = resolve_device(None)
+    use_strict_float32()
+    counters = {"relu_max_pool": fused_pool.relu_max_pool,
+                "relu_max_pool_bwd": fused_pool.relu_max_pool_bwd,
+                "gather_normalize": gather_norm.gather_normalize,
+                "knn_topk": knn_topk.knn_topk_with_dist,
+                "pairwise_sqdist": pairwise.pairwise_sqdist}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_train_dataset(f"{tmp}/data")
+        log(f"training dataset written in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        check_gather_streamed(dev, torch.Generator(device=dev).manual_seed(
+            SEED), [])
+        launches = run_data_layer(f"{tmp}/data", f"{tmp}/data_layer", dev,
+                                  counters)
+        log(f"phase 4b (data layer) in {time.perf_counter() - t0:.1f} s; "
+            f"launches {launches}")
+    print(card)
+    return 0
+
+
 def main(argv) -> int:
     tree = seeds = None
-    if argv:
+    data_only = argv == ["--data-layer"]
+    if argv and not data_only:
         if len(argv) != 2 or argv[0] not in ("--pools-of", "--step-seeds") \
                 or argv[0] == "--step-seeds" and not argv[1].isdigit():
             print("usage: chip_smoke.py [--pools-of CHECKOUT | --step-seeds "
-                  "N]", file=sys.stderr)
+                  "N | --data-layer]", file=sys.stderr)
             return 2
         if argv[0] == "--step-seeds":
             seeds = int(argv[1])
@@ -2232,6 +2673,8 @@ def main(argv) -> int:
             step_seeds(resolve_device(None), seeds)
             print(card)
             return 0
+        if data_only:
+            return data_layer_only(card)
 
         from srl_zoo_tpu_torch.checkpoint import save_srl_model
         from srl_zoo_tpu_torch.config import SRLConfig
@@ -2265,6 +2708,7 @@ def main(argv) -> int:
         check_stem_pool(dev, g, times)
         check_pool_edges(dev, g)
         stats["gather_normalize"] = check_gather(store, dev, times)
+        check_gather_streamed(dev, g, times)
         check_gather_edges(store, dev, g)
         check_no_sync(store, dev)
         stats["knn_topk"] = check_knn(dev, g, times)
@@ -2335,6 +2779,12 @@ def main(argv) -> int:
                                  if "path_to_dae" in model_kw else None)
                 log(f"{name}: training profile in "
                     f"{time.perf_counter() - t0:.1f} s")
+
+            t0 = time.perf_counter()
+            data = run_data_layer(f"{tmp}/data", f"{tmp}/data_layer", dev,
+                                  counters)
+            launches = {k: launches[k] + data[k] for k in counters}
+            log(f"phase 4b (data layer) in {time.perf_counter() - t0:.1f} s")
 
             t0 = time.perf_counter()
             piped = run_pipeline(f"{tmp}/data", f"{tmp}/pipeline", counters)

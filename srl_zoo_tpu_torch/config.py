@@ -8,9 +8,9 @@ loads in the other with equal fields. A file without ``bn-momentum`` was
 recorded before that key existed and trained at flax's 0.99.
 
 Every loss of the zoo trains, on every model type (custom_cnn, resnet,
-mlp, linear) at either compute dtype (float32, bfloat16). Options that
-the port does not run yet raise ``NotImplementedError`` naming the
-ROADMAP.md item they wait for.
+mlp, linear) at either compute dtype (float32, bfloat16), with every
+``--device-cache`` mode but ``sharded``, which raises
+``NotImplementedError`` naming the ROADMAP.md item it waits for.
 Loading a config for inference checks only what the encode path needs;
 ``check_trainable`` adds what training needs.
 """
@@ -168,21 +168,12 @@ class SRLConfig:
 
     def check_trainable(self) -> None:
         """Raise NotImplementedError, naming its ROADMAP.md item, for what
-        the port cannot train yet."""
-        checks = (
-            (self.balanced_sampling, "--balanced-sampling",
-             "ROADMAP.md queue A item 6 'Data'"),
-            (self.device_cache not in ("auto", "on"),
-             f"--device-cache {self.device_cache}",
-             "ROADMAP.md queue A item 6 'Data' (streaming and hybrid "
-             "caches)" if self.device_cache != "sharded" else
-             "ROADMAP.md queue A item 8 'Multi-GPU'"),
-            (self.stream_overlap, "--stream-overlap",
-             "ROADMAP.md queue A item 6 'Data' (streaming caches)"),
-        )
-        for failed, what, item in checks:
-            if failed:
-                raise NotImplementedError(f"{what} is not ported yet: {item}")
+        the port cannot train yet: the frame store sharded over several
+        GPUs."""
+        if self.device_cache == "sharded":
+            raise NotImplementedError(
+                "--device-cache sharded is not ported yet: ROADMAP.md queue "
+                "A item 8 'Multi-GPU'")
 
     # ---- derived helpers ---------------------------------------------------
     @property

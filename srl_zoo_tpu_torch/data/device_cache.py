@@ -1,60 +1,171 @@
-"""Device-resident frame store (port of ``srl_zoo_tpu/data/device_cache.py``,
-full mode).
+"""Device-resident frame store (port of ``srl_zoo_tpu/data/device_cache.py``).
 
-The whole ``frames.npy`` cache is uploaded once as a uint8 (N, H, W, C)
-tensor, and with ``second_view`` the second camera's ``frames_2.npy``
-beside it; export and training batches are then host index arrays that the
-gather kernel reads from it (ops/gather_norm.py). The store must fit the
-device's free memory with room to spare for the model and its activations.
-The streaming and hybrid modes for larger datasets wait for a later slice.
+The ``frames.npy`` cache is uploaded once as a uint8 (N, H, W, C) tensor,
+and with ``second_view`` the second camera's ``frames_2.npy`` beside it;
+export and training batches are then host index arrays that the gather
+kernel reads from it (ops/gather_norm.py). The store's budget is
+``FREE_MEMORY_SHARE`` of the device's free memory, or
+``SRL_ZOO_CACHE_BUDGET_MB`` where that is set (read at each call; a
+fraction of a MiB is allowed, so that a small dataset can be made to go
+hybrid). ``--device-cache`` picks the mode (``open_store``):
+
+* ``auto``: the whole store where it fits; else a hybrid store
+  (data/hybrid.py) when the budget holds at least two batches of rows;
+  else streaming;
+* ``on``: the whole store, or an error when it does not fit;
+* ``off``: streaming (the loader's uint8 batches, data/transfer.py);
+* ``hybrid``: the hybrid store, whose size is the budget's;
+* ``sharded`` (a JAX run's multi-chip store, which the port does not
+  train with) exports as ``auto`` does.
+
+A store is only built from a cache at the training resolution (both views
+where the config reads the second); any other dataset streams.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import os
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from srl_zoo_tpu_torch.data.schema import Dataset
 from srl_zoo_tpu_torch.ops.gather_norm import gather_normalize
+from srl_zoo_tpu_torch.utils.misc import printGreen, printYellow
 
 # share of the device's free memory that the store may take
 FREE_MEMORY_SHARE = 0.8
+BUDGET_ENV = "SRL_ZOO_CACHE_BUDGET_MB"
 UPLOAD_ROWS = 1024
 
 
+def budget_bytes(device: torch.device) -> Optional[int]:
+    """Bytes the store may take on ``device``: ``SRL_ZOO_CACHE_BUDGET_MB``
+    MiB where it is set, else ``FREE_MEMORY_SHARE`` of a CUDA device's free
+    memory; None (no limit) on the CPU."""
+    env = os.environ.get(BUDGET_ENV)
+    if env:
+        return int(float(env) * 2**20)
+    if device.type == "cuda":
+        free, _ = torch.cuda.mem_get_info(device)
+        return int(FREE_MEMORY_SHARE * free)
+    return None
+
+
+def _views(second_view: bool) -> Tuple[str, ...]:
+    return ("frames", "frames_2") if second_view else ("frames",)
+
+
+def cache_nbytes(dataset: Dataset, second_view: bool) -> Optional[int]:
+    """Bytes of the store that ``build_cache`` would upload (the second
+    view only where the config reads it), or None without a frames
+    cache."""
+    if dataset.frames is None:
+        return None
+    return sum(getattr(dataset, name).nbytes for name in _views(second_view)
+               if getattr(dataset, name) is not None)
+
+
+def views_cacheable(dataset: Dataset, hw, second_view: bool) -> bool:
+    """Whether every view the store would hold has a frames cache at the
+    training resolution ``hw`` (another size streams, resized per batch)."""
+    return all(getattr(dataset, name) is not None
+               and tuple(getattr(dataset, name).shape[1:3]) == tuple(hw)
+               for name in _views(second_view))
+
+
+def fits(dataset: Dataset, hw, second_view: bool,
+         max_bytes: Optional[int]) -> bool:
+    """Whether the whole store can be built within ``max_bytes`` (None: no
+    limit)."""
+    if not views_cacheable(dataset, hw, second_view):
+        return False
+    return max_bytes is None or cache_nbytes(dataset, second_view) \
+        <= max_bytes
+
+
+def hybrid_hot_n(dataset: Dataset, hw, second_view: bool,
+                 max_bytes: Optional[int]) -> int:
+    """Rows of a hybrid store within ``max_bytes``: 0 where the views are
+    not cacheable; all rows where there is no limit."""
+    if not views_cacheable(dataset, hw, second_view):
+        return 0
+    per = int(np.prod(dataset.frames.shape[1:])) * len(_views(second_view))
+    if max_bytes is None:
+        return dataset.n_samples
+    return int(min(dataset.n_samples, max_bytes // per))
+
+
 def build_cache(dataset: Dataset, device: torch.device,
-                second_view: bool = False) -> Dict[str, torch.Tensor]:
-    """{"frames": uint8 (N, H, W, C) tensor on ``device``}, and
-    "frames_2" of the same shape with ``second_view``."""
-    names = ("frames", "frames_2") if second_view else ("frames",)
-    arrays = {name: getattr(dataset, name) for name in names}
+                second_view: bool = False,
+                hot_n: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """{"frames": uint8 (N, H, W, C) tensor on ``device``}, and "frames_2"
+    of the same shape with ``second_view``; with ``hot_n`` the first
+    ``hot_n`` rows only (the hybrid store's first window)."""
+    arrays = {name: getattr(dataset, name) for name in _views(second_view)}
     for name, arr in arrays.items():
         if arr is None:
             raise ValueError(f"{dataset.data_folder} has no usable "
-                             f"{name}.npy cache; JPEG decode is not ported "
-                             "yet")
+                             f"{name}.npy cache to upload (run "
+                             "preprocessing, or use --device-cache off)")
     if second_view and arrays["frames_2"].shape != arrays["frames"].shape:
         raise ValueError(f"frames_2.npy {arrays['frames_2'].shape} and "
                          f"frames.npy {arrays['frames'].shape} differ in "
                          f"{dataset.data_folder}")
-    nbytes = sum(arr.nbytes for arr in arrays.values())
-    if device.type == "cuda":
-        free, _ = torch.cuda.mem_get_info(device)
-        if nbytes > FREE_MEMORY_SHARE * free:
-            raise MemoryError(
-                f"frame store of {nbytes / 2**30:.2f} GiB exceeds "
-                f"{FREE_MEMORY_SHARE:.0%} of the {free / 2**30:.2f} GiB free "
-                f"on {device}; streaming mode is not ported yet")
     store = {}
     for name, arr in arrays.items():
-        frames = torch.empty(arr.shape, dtype=torch.uint8, device=device)
-        for s in range(0, len(frames), UPLOAD_ROWS):  # bounded host staging
+        n = len(arr) if hot_n is None else hot_n
+        frames = torch.empty((n,) + arr.shape[1:], dtype=torch.uint8,
+                             device=device)
+        for s in range(0, n, UPLOAD_ROWS):  # bounded host staging
             frames[s:s + UPLOAD_ROWS].copy_(torch.from_numpy(
-                np.array(arr[s:s + UPLOAD_ROWS])))
+                np.array(arr[s:min(s + UPLOAD_ROWS, n)])))
         store[name] = frames
     return store
+
+
+def open_store(dataset: Dataset, cfg, device: torch.device,
+               second_view: Optional[bool] = None):
+    """(store, hot_store) of ``cfg.device_cache`` (see the module note):
+    (whole store, None), (the hybrid store's tensors, its
+    ``RotatingHotStore``) or (None, None) to stream. The store holds the
+    second view where ``second_view`` says (default: where training reads
+    it; an export reads it only where the views are stacked)."""
+    mode = cfg.device_cache
+    if mode == "off":
+        return None, None
+    hw = (cfg.img_height, cfg.img_width)
+    second = cfg.needs_second_view if second_view is None else second_view
+    budget = budget_bytes(device)
+    if mode != "hybrid" and fits(dataset, hw, second, budget):
+        nbytes = cache_nbytes(dataset, second)
+        printGreen(f"Caching dataset on {device} ({nbytes / 2**20:.0f} MiB)")
+        return build_cache(dataset, device, second), None
+    if mode == "on":
+        raise ValueError("--device-cache on, but the dataset does not fit "
+                         "the device budget or has no frames.npy at the "
+                         "training resolution")
+    hot_n = hybrid_hot_n(dataset, hw, second, budget)
+    if mode == "hybrid" and hot_n == 0:
+        raise ValueError("--device-cache hybrid, but the dataset has no "
+                         "frames.npy at the training resolution")
+    if hot_n >= dataset.n_samples:
+        # a forced hybrid store that holds every row is the whole store
+        return build_cache(dataset, device, second), None
+    if hot_n >= 2 * cfg.batch_size:
+        from srl_zoo_tpu_torch.data.hybrid import RotatingHotStore
+        how = "rotating residency" if cfg.hybrid_rotation \
+            else "static prefix (--no-hybrid-rotation)"
+        printGreen(f"Hybrid device cache: {hot_n}/{dataset.n_samples} frames "
+                   f"resident ({how}), the rest streams each epoch")
+        hot = RotatingHotStore(dataset, device, cfg, hot_n,
+                               rotate=cfg.hybrid_rotation, second_view=second)
+        return hot.cache, hot
+    if hot_n > 0:
+        printYellow(f"the device budget holds only {hot_n} frames (fewer "
+                    "than two batches): streaming instead")
+    return None, None
 
 
 def gather_obs(store: Dict[str, torch.Tensor], idx, cfg) -> torch.Tensor:

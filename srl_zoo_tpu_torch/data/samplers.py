@@ -1,6 +1,6 @@
-"""Pair samplers of the robotic priors and the episode prior, and the
-triplet's negatives (a copy of five functions of
-``srl_zoo_tpu/data/samplers.py``), host-side in numpy.
+"""Pair samplers of the robotic priors and the episode prior, the
+triplet's negatives and the balanced reward sampling (a copy of the six
+functions of ``srl_zoo_tpu/data/samplers.py``), host-side in numpy.
 
 Each minibatch row gets one partner index and a 0/1 mask (0: no partner
 exists, the pair counts for nothing), a partner and a same-episode label,
@@ -96,3 +96,21 @@ def triplet_negatives(indices: np.ndarray, episode_ids_all: np.ndarray,
         negs = negs.copy()
         negs[bad] = resample
     return negs.astype(np.int32)
+
+
+def balanced_reward_indices(indices: np.ndarray, reward_classes: np.ndarray,
+                            rng: np.random.RandomState) -> np.ndarray:
+    """``--balanced-sampling``: an epoch of ``len(indices)`` entries of
+    ``indices`` in which every reward class appears equally often (each
+    class drawn with replacement where it has fewer rows than its share).
+    The concatenation is shuffled before it is cut to length, so the cut
+    does not fall on the last class alone."""
+    classes = reward_classes[indices]
+    uniq = np.unique(classes)
+    n_per = int(np.ceil(len(indices) / len(uniq)))
+    out = np.concatenate([
+        rng.choice(indices[classes == c], size=n_per,
+                   replace=int((classes == c).sum()) < n_per)
+        for c in uniq])
+    rng.shuffle(out)
+    return out[:len(indices)].astype(np.int32)

@@ -1,13 +1,13 @@
 """Dataset folder schema (port of ``srl_zoo_tpu/data/schema.py``).
 
 A dataset folder holds ``preprocessed_data.npz`` (actions, rewards,
-episode_starts), ``ground_truth.npz`` (ground_truth_states, images_path)
-and, for the device-resident path, the ``frames.npy`` (N, H, W, C) uint8
-decode cache; a two-camera dataset (multi-view, triplet) holds the second
-view's in ``frames_2.npy``. This port trains and encodes only from those
-caches: JPEG decode on the data path waits for ROADMAP.md queue A item 6;
-the KNN-MSE image grids decode the recorded images themselves
-(``resolve_image_path``, ``data/loader.py`` ``decode_resize``).
+episode_starts), ``ground_truth.npz`` (ground_truth_states, images_path,
+and images_path_2 for a second camera) and the per-episode ``record_*``
+image folders (preprocessing/preprocess.py writes the two npz files from
+them). ``frames.npy`` (N, H, W, C) uint8 is the decode cache, memory-mapped
+here; a two-camera dataset (multi-view, triplet) holds the second view's
+in ``frames_2.npy``. Without a cache at the training resolution the loader
+decodes the recorded images (data/loader.py).
 
 Reward convention: ``rewards[t]`` is the reward upon ARRIVING at frame t,
 so transition t = (frame t, action t, frame t+1) reads ``rewards[t + 1]``.
@@ -44,6 +44,8 @@ class Dataset:
     frames_2: Optional[np.ndarray] = None
     # (N,) str, the recorded image of each row (``resolve_image_path``)
     images_path: Optional[np.ndarray] = None
+    # (N,) str, the second camera's recorded image of each row
+    images_path_2: Optional[np.ndarray] = None
 
     def __post_init__(self):
         if self.episode_starts is None:
@@ -115,6 +117,8 @@ def load_dataset(data_folder: str) -> Dataset:
     episode_starts = pre["episode_starts"].astype(bool)
     gts = gt["ground_truth_states"].astype(np.float32)
     images_path = np.asarray(gt["images_path"]).astype(str)
+    images_path_2 = np.asarray(gt["images_path_2"]).astype(str) \
+        if "images_path_2" in gt else None
     n = len(actions)
     for name, arr in [("rewards", rewards), ("episode_starts", episode_starts),
                       ("ground_truth_states", gts),
@@ -130,7 +134,8 @@ def load_dataset(data_folder: str) -> Dataset:
     return Dataset(data_folder=data_folder, actions=actions, rewards=rewards,
                    ground_truth_states=gts, episode_starts=episode_starts,
                    reward_classes=discretize_rewards(rewards),
-                   images_path=images_path, **frames)
+                   images_path=images_path, images_path_2=images_path_2,
+                   **frames)
 
 
 def save_states_rewards(log_folder: str, states: np.ndarray,

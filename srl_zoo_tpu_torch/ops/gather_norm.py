@@ -8,7 +8,8 @@ element); the source note says how the design meets that.
     out[b] = normalize(frames[idx[b]])     (N, H, W, C) u8 -> (B, H, W, C) f32
 
 The export and training paths gather index batches from the resident
-store; encoding passes the uploaded request batch as the store with the
+store (a hybrid store by slot); encoding and the streamed training and
+export batches pass the uploaded uint8 batch as the store with the
 identity index. Both normalize modes are one per-channel affine map, so
 neither leaves the kernel. An index outside [0, N) raises IndexError
 (JAX's ``take`` would fill the row silently).

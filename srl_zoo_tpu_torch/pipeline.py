@@ -16,9 +16,9 @@ cell; a cell of several seeds reports each metric's mean and std.
 
 It runs on CUDA unless ``--device cpu`` is given (passed on to the train
 CLI and ``knn_images``); without a GPU it raises before it writes
-anything. The dataset must hold ``preprocessed_data.npz`` and a current
-``frames.npy``: preprocessing and the frames-cache rebuild wait for
-ROADMAP.md queue A item 6.
+anything. A folder of recorded ``record_*`` episodes is preprocessed
+first, and a missing or stale ``frames.npy`` (at ``--img-size``) is
+rebuilt (``check_dataset``).
 """
 
 from __future__ import annotations
@@ -28,7 +28,6 @@ import datetime
 import itertools
 import json
 import os
-from typing import Optional
 
 import numpy as np
 
@@ -36,63 +35,27 @@ from srl_zoo_tpu_torch.utils.device import resolve_device
 from srl_zoo_tpu_torch.utils.misc import (parseDataFolder, printGreen,
                                           printRed, printYellow)
 
-PREPROCESS_ITEM = ("ROADMAP.md queue A item 6 'Data' "
-                   "(preprocessing/preprocess.py)")
-
-
-def frames_cache_stale(path: str, img_size: int,
-                       n_expected: Optional[int] = None) -> bool:
-    """Whether ``frames.npy`` is missing, unreadable, recorded at another
-    resolution than ``img_size`` or holds another number of frames than
-    the dataset (the JAX package's ``preprocessing/preprocess.py`` rule,
-    under which its pipeline rebuilds the cache)."""
-    if not os.path.exists(path):
-        return True
-    try:
-        shape = np.load(path, mmap_mode="r").shape
-    except (ValueError, OSError) as e:
-        printYellow(f"{os.path.basename(path)} is unreadable ({e})")
-        return True
-    if shape[1:3] != (img_size, img_size):
-        printYellow(f"{os.path.basename(path)} is {shape[1]}x{shape[2]} "
-                    f"but --img-size is {img_size}")
-        return True
-    if n_expected is not None and shape[0] != n_expected:
-        printYellow(f"{os.path.basename(path)} holds {shape[0]} frames but "
-                    f"the dataset has {n_expected} samples")
-        return True
-    return False
-
-
-def _dataset_length(data_folder: str) -> Optional[int]:
-    """Rows of ``ground_truth.npz``'s images_path, or None without it."""
-    path = os.path.join(data_folder, "ground_truth.npz")
-    if not os.path.exists(path):
-        return None
-    try:
-        return len(np.load(path, allow_pickle=True)["images_path"])
-    except (ValueError, OSError, KeyError):
-        return None
-
-
-def check_dataset(data_folder: str, img_size: int) -> None:
-    """The dataset folder exists, is preprocessed and holds a frames
-    cache at ``img_size``. Where the JAX pipeline would preprocess or
-    rebuild the cache, this raises NotImplementedError."""
+def check_dataset(data_folder: str, img_size: int,
+                  multi_view: bool = False) -> None:
+    """Make the dataset folder trainable at ``img_size``: preprocess its
+    ``record_*`` episodes where ``preprocessed_data.npz`` is missing, and
+    (re)build each frames cache that is missing or stale (view 2's too
+    where the dataset records a second camera or ``multi_view``). A cache
+    that cannot be built (no recorded images) is reported and left out:
+    training then streams what it can."""
+    from srl_zoo_tpu_torch.preprocessing.preprocess import (
+        preprocess_folder, refresh_frames_caches)
     if not os.path.isdir(data_folder):
         raise FileNotFoundError(
             f"Dataset folder {data_folder} not found — record or download a "
             "dataset first")
     if not os.path.exists(os.path.join(data_folder, "preprocessed_data.npz")):
-        raise NotImplementedError(
-            f"{data_folder} has no preprocessed_data.npz, and preprocessing "
-            f"is not ported yet: {PREPROCESS_ITEM}")
-    if frames_cache_stale(os.path.join(data_folder, "frames.npy"), img_size,
-                          n_expected=_dataset_length(data_folder)):
-        raise NotImplementedError(
-            f"{data_folder}/frames.npy is missing or stale for --img-size "
-            f"{img_size}, and the frames-cache rebuild is not ported yet: "
-            f"{PREPROCESS_ITEM}")
+        printYellow("preprocessed_data.npz missing: running preprocessing")
+        preprocess_folder(data_folder)
+    try:
+        refresh_frames_caches(data_folder, img_size, multi_view)
+    except Exception as e:  # a dataset without its images keeps working
+        printYellow(f"frames cache not built: {e}")
 
 
 def _cell_log_folder(dataset_name: str, model_type: str, losses,
@@ -292,7 +255,7 @@ def main(argv=None):
     dataset_name = os.path.basename(parseDataFolder(args.data_folder))
     data_folder = args.data_folder if os.path.isdir(args.data_folder) \
         else os.path.join("data", dataset_name)
-    check_dataset(data_folder, args.img_size)
+    check_dataset(data_folder, args.img_size, args.multi_view)
 
     seeds = args.seeds or [args.seed]
     report_dir = os.path.join("logs", dataset_name)

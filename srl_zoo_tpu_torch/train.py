@@ -24,10 +24,21 @@ initial model is exported), with ``--grad-accum`` micro-steps per Adam
 step, on the custom_cnn, resnet (ResNet-18, ``--pretrained-weights`` from
 a torchvision state dict), mlp or linear encoder, computing in float32 or
 (``--dtype bfloat16``) bfloat16;
-``--multi-view`` reads a two-camera dataset (``frames_2.npy``): triplet
-takes the second view as its positive, any other loss stacks both views
-into a 6-channel input. Flags of features the port does not run yet raise
-NotImplementedError naming their ROADMAP.md item.
+``--multi-view`` reads a two-camera dataset (``frames_2.npy``, or its
+second camera's images): triplet takes the second view as its positive,
+any other loss stacks both views into a 6-channel input.
+``--device-cache`` picks where the frames live (data/device_cache.py):
+``auto`` keeps the whole ``frames.npy`` on the device where it fits the
+budget (80% of free device memory, or ``SRL_ZOO_CACHE_BUDGET_MB``), else
+a hybrid store of what fits (data/hybrid.py; rotating unless
+``--no-hybrid-rotation``), else streams; ``on``, ``off`` and ``hybrid``
+force one mode. Streamed batches are decoded from the JPEGs where the
+folder has no ``frames.npy`` (the images are then taken at 224 x 224) on
+``--num-cpu`` threads, and with ``--stream-overlap`` each batch's copy to
+the device overlaps the step before it. ``--balanced-sampling`` draws
+every reward class equally often. Flags of features the port does not
+run yet (``--device-cache sharded``, ``--num-processes``, ``--profile``)
+raise NotImplementedError naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -114,8 +125,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                    choices=["float32", "bfloat16"])
     p.add_argument("--device-cache", type=str, default="auto",
                    choices=["auto", "on", "off", "hybrid", "sharded"],
-                   help="The frame store lives on the device; 'auto' and "
-                        "'on' both require it to fit")
+                   help="Where the frames live: 'auto' caches them on the "
+                        "device where they fit, else a hybrid store, else "
+                        "streams; 'on', 'off' and 'hybrid' force a mode")
     p.add_argument("--stream-overlap", default=False,
                    action=argparse.BooleanOptionalAction)
     p.add_argument("--no-hybrid-rotation", action="store_true",

@@ -1,9 +1,19 @@
 """The training runtime (port of ``srl_zoo_tpu/training/learner.py``
-``SRL4robotics``, full device-cache mode).
+``SRL4robotics``).
 
 ``learn`` splits the dataset's transitions into train and validation rows
-as the JAX learner does, uploads the frame store to the device once, and
-runs the epoch loop: the train steps over index batches, train metrics
+as the JAX learner does, opens the frame store that ``--device-cache``
+asks for (data/device_cache.py ``open_store``: the whole store, a hybrid
+store or none) and runs the epoch loop. Each split is one phase of index
+batches over the whole store, one phase of streamed batches
+(data/transfer.py, ``--stream-overlap``), or with a hybrid store
+(data/hybrid.py) a hot phase of slot-addressed batches and a cold phase of
+streamed ones, each batch wholly one or the other. Under rotation the
+phases are rebuilt every epoch, their generator seeded with seed + epoch,
+the cold phases adopt their entering rows into the store, the slots
+validation's hot phase reads are held until it is done, and the window
+moves on after validation; a resumed run replays the window to its start
+epoch. An epoch is the train steps, train metrics
 averaged over valid rows, a masked validation pass in eval mode, the
 best-validation weights kept as on-device copies and exported to
 ``srl_model.pth``, the loss history and a resume checkpoint per epoch,
@@ -33,9 +43,10 @@ import torch
 
 from srl_zoo_tpu_torch import checkpoint as ckpt
 from srl_zoo_tpu_torch.config import SRLConfig
-from srl_zoo_tpu_torch.data.device_cache import build_cache
+from srl_zoo_tpu_torch.data.device_cache import open_store
 from srl_zoo_tpu_torch.data.loader import DataLoader, batch_flags
 from srl_zoo_tpu_torch.data.schema import Dataset
+from srl_zoo_tpu_torch.data.transfer import stream_batches
 from srl_zoo_tpu_torch.evaluation import predict_dataset
 from srl_zoo_tpu_torch.inference import StateEncoder
 from srl_zoo_tpu_torch.models.torch_port import load_ported_resnet18
@@ -116,7 +127,13 @@ class SRL4robotics:
             if cfg.path_to_dae else None
         self._cache = None
         self._cache_of = None
+        self._hot_store = None
         self._eval_corruption = None
+        # with time_phases each phase, adoption and rotation is timed
+        # between two device synchronises into phase_log (a measurement
+        # aid: the synchronises stall the host's queue ahead of the device)
+        self.time_phases = False
+        self.phase_log: List[Dict] = []
         n_params = sum(p.numel() for p in self.model.parameters())
         printGreen(f"Model: {cfg.model_type}, {n_params / 1e6:.2f}M params, "
                    f"on {self.device}, compute dtype {cfg.compute_dtype}")
@@ -134,17 +151,97 @@ class SRL4robotics:
                              f"missing {missing}, unexpected {unexpected}")
         printGreen(f"Loaded pretrained ResNet-18 weights from {path}")
 
-    def _store(self, dataset: Dataset) -> Dict[str, torch.Tensor]:
-        """The dataset's uint8 frame store on the device (both camera views
-        where the config reads the second), uploaded once. A store that
-        does not fit raises (streaming is not ported)."""
+    def _store(self, dataset: Dataset):
+        """The dataset's uint8 frame store on the device as
+        ``--device-cache`` asks (both camera views where the config reads
+        the second): the whole store, a hybrid store's tensors (its
+        ``RotatingHotStore`` in ``_hot_store``) or None to stream; opened
+        once per dataset."""
         if self._cache_of is not dataset:
-            self._cache = build_cache(dataset, self.device,
-                                      self.cfg.needs_second_view)
+            self._cache, self._hot_store = open_store(dataset, self.cfg,
+                                                      self.device)
             self._cache_of = dataset
-            mib = sum(t.numel() for t in self._cache.values()) / 2**20
-            printGreen(f"Caching dataset on {self.device} ({mib:.0f} MiB)")
         return self._cache
+
+    def _split_hot_cold(self, indices: np.ndarray,
+                        for_encode: bool = False) -> np.ndarray:
+        """Which rows the store serves this epoch: all without a hybrid
+        store; else the resident rows, and for a training gather only
+        those whose successor is resident too where next_obs is read."""
+        if self._hot_store is None:
+            return np.ones(len(indices), bool)
+        if for_encode:
+            return self._hot_store.resident_mask(indices)
+        return self._hot_store.trainable_mask(indices)
+
+    def _make_phase_loaders(self, dataset: Dataset, indices: np.ndarray,
+                            shuffle: bool, wraparound: bool,
+                            seed_offset: int = 0
+                            ) -> List[Tuple[DataLoader, bool]]:
+        """[(loader, cached)]: one phase over the whole store or streamed,
+        or a hybrid store's hot phase (index or slot batches) and cold
+        phase (streamed). The hot triplet negatives are drawn from this
+        epoch's resident rows, the cold ones from the whole split."""
+        cfg = self.cfg
+        if len(indices) == 0:
+            return []
+        common = dict(shuffle=shuffle, seed=cfg.seed + seed_offset,
+                      wraparound=wraparound, **batch_flags(cfg))
+        streamed = dict(emit_images=True,
+                        pin_memory=self.device.type == "cuda")
+        if self._cache is None:
+            return [(DataLoader(dataset, indices, cfg.batch_size, **common,
+                                **streamed), False)]
+        hot = self._split_hot_cold(indices)
+        store = self._hot_store
+        phases = []
+        if hot.any():
+            negs = indices[self._split_hot_cold(indices, for_encode=True)] \
+                if store is not None and cfg.use_triplet else None
+            slots = store.slot_of if store is not None and store.rotate \
+                else None
+            phases.append((DataLoader(dataset, indices[hot], cfg.batch_size,
+                                      neg_pool=negs, slot_map=slots,
+                                      **common), True))
+        if not hot.all():
+            phases.append((DataLoader(dataset, indices[~hot], cfg.batch_size,
+                                      neg_pool=indices, **common,
+                                      **streamed), False))
+        return phases
+
+    def _clock(self) -> Optional[float]:
+        """The host clock after the device's queue drains, where
+        ``time_phases`` asks for it."""
+        if not self.time_phases:
+            return None
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter()
+
+    def _note(self, t0: Optional[float], epoch: int, what: str,
+              rows: int = 0) -> None:
+        if t0 is not None:
+            self.phase_log.append({"epoch": epoch, "what": what,
+                                   "rows": rows,
+                                   "s": self._clock() - t0})
+
+    def _phase_name(self, cached: bool) -> str:
+        if self._hot_store is not None:
+            return "hot" if cached else "cold"
+        return "cached" if cached else "streamed"
+
+    def _adopt(self, batch: Dict, epoch: int) -> None:
+        """The hybrid store adopts a streamed batch's entering rows."""
+        t0 = self._clock()
+        self._hot_store.maybe_adopt(batch["indices"], batch)
+        self._note(t0, epoch, "adopt")
+
+    def _batches(self, loader: DataLoader, cached: bool):
+        """A phase's batches: index batches as they come, streamed ones
+        with their pixels on the device."""
+        if cached:
+            return iter(loader)
+        return stream_batches(loader, self.device, self.cfg.stream_overlap)
 
     # ---- training ----------------------------------------------------------
     def learn(self, dataset: Dataset, resume: bool = False,
@@ -176,21 +273,28 @@ class SRL4robotics:
             logger.close()
             return {"total": 0.0}
         store = self._store(dataset)
-        pairs = batch_flags(cfg)
+        hot_store = self._hot_store
+        rotating = hot_store is not None and hot_store.rotate
         # the DAE's one validation draw, read by every validation pass
         self._eval_corruption = draw_corruption(
             cfg, torch.Generator(device=self.device).manual_seed(
                 cfg.seed + 1), cfg.batch_size, self.device) \
             if cfg.use_dae else None
-        train_loader = DataLoader(dataset, train_idx, cfg.batch_size,
-                                  shuffle=True, seed=cfg.seed,
-                                  wraparound=True, **pairs)
-        # padded + masked, so val metrics are exact per-sample means
-        val_loader = DataLoader(dataset, val_idx, cfg.batch_size,
-                                shuffle=False, seed=cfg.seed,
-                                wraparound=False, **pairs) \
-            if len(val_idx) else None
 
+        def train_phases(epoch: int):
+            return self._make_phase_loaders(
+                dataset, train_idx, shuffle=True, wraparound=True,
+                seed_offset=epoch if rotating else 0)
+
+        def val_phases():
+            # padded + masked, so val metrics are exact per-sample means
+            return self._make_phase_loaders(dataset, val_idx, shuffle=False,
+                                            wraparound=False)
+
+        phases, vphases = train_phases(0), val_phases()
+        # the rows validation's hot phase reads: its rows and their next
+        val_reads = np.concatenate([val_idx, np.minimum(
+            val_idx + 1, dataset.n_samples - 1)])
         start_epoch, step, best_val = 0, 0, float("inf")
         if resume:
             restored = ckpt.restore_train_state(self.log_folder, self.model,
@@ -202,9 +306,12 @@ class SRL4robotics:
                 best_val = restored["best_val"]
                 printGreen(f"Resumed from step {step} (epoch {start_epoch}, "
                            f"best val {best_val:.4f})")
+                if rotating:
+                    hot_store.replay_to(start_epoch)
         # the shuffle of epoch e is drawn from RandomState(seed + e) in a
         # resumed run too
-        train_loader.epoch = start_epoch
+        for loader, _ in phases:
+            loader.epoch = start_epoch
         best = ckpt.snapshot(self.model.state_dict())
         improved = False
         val_metrics: Dict[str, float] = {}
@@ -212,17 +319,38 @@ class SRL4robotics:
         try:
             for epoch in range(start_epoch, cfg.epochs):
                 t_epoch = time.time()
+                if rotating:
+                    hot_store.begin_epoch()
+                    hot_store.hold(val_reads)
+                    phases = train_phases(epoch)
                 acc, n_images = [], 0
-                for batch in train_loader:
-                    acc.append(train_step(self.model, self.optimizer, store,
-                                          batch, self.generator,
-                                          self.frozen_dae))
-                    step += 1
-                    n_images += int(batch["valid"].sum())
+                for loader, cached in phases:
+                    t0, n0 = self._clock(), n_images
+                    for batch in self._batches(loader, cached):
+                        acc.append(train_step(self.model, self.optimizer,
+                                              store if cached else None,
+                                              batch, self.generator,
+                                              self.frozen_dae))
+                        step += 1
+                        n_images += int(batch["valid"].sum())
+                        if not cached and hot_store is not None:
+                            self._adopt(batch, epoch)
+                    self._note(t0, epoch, f"train {self._phase_name(cached)}",
+                               n_images - n0)
                 train_metrics = mean_metrics(acc, cfg)
                 ips = n_images / max(time.time() - t_epoch, 1e-9)
-                val_metrics = self._run_eval(val_loader, store) \
-                    if val_loader is not None else train_metrics
+                if rotating:
+                    vphases = val_phases()
+                val_metrics = self._run_eval(vphases, epoch) if vphases \
+                    else train_metrics
+                if rotating:
+                    # after validation, whose cold batches adopt too, and
+                    # before the callback, which may export through the store
+                    t0 = self._clock()
+                    swept = hot_store.swept_rows
+                    hot_store.advance()
+                    self._note(t0, epoch, "advance",
+                               hot_store.swept_rows - swept)
 
                 logger.log_epoch(epoch, train_metrics, val_metrics)
                 logger.log_step(step, {f"train/{k}": v
@@ -276,30 +404,42 @@ class SRL4robotics:
         logger.save_history()
         logger.close()
         if not val_metrics:
-            # a finished run resumed: evaluate the exported weights once
-            loader = val_loader or DataLoader(
-                dataset, train_idx, cfg.batch_size, shuffle=False,
-                seed=cfg.seed, wraparound=False, **pairs)
-            val_metrics = self._run_eval(loader, store)
+            # a finished run resumed: evaluate the exported weights once,
+            # over the validation rows (else the training rows, masked)
+            val_metrics = self._run_eval(
+                val_phases() or self._make_phase_loaders(
+                    dataset, train_idx, shuffle=False, wraparound=False))
         printGreen(f"Best validation loss: {best_val:.4f}")
         return val_metrics
 
-    def _run_eval(self, loader: DataLoader, store: Dict[str, torch.Tensor]
-                  ) -> Dict[str, float]:
-        """One masked-exact eval pass."""
-        return mean_metrics([eval_step(self.model, store, batch,
-                                       self._eval_corruption,
-                                       self.frozen_dae)
-                             for batch in loader], self.cfg)
+    def _run_eval(self, phases, epoch: int = -1) -> Dict[str, float]:
+        """One masked-exact eval pass over the phases. A hybrid store's
+        held slots are released once the hot phase is done, and the cold
+        batches adopt their entering rows."""
+        acc = []
+        for loader, cached in phases:
+            if not cached and self._hot_store is not None:
+                self._hot_store.release()
+            t0, rows = self._clock(), 0
+            for batch in self._batches(loader, cached):
+                acc.append(eval_step(self.model, self._cache if cached
+                                     else None, batch,
+                                     self._eval_corruption, self.frozen_dae))
+                rows += int(batch["valid"].sum())
+                if not cached and self._hot_store is not None:
+                    self._adopt(batch, epoch)
+            self._note(t0, epoch, f"val {self._phase_name(cached)}", rows)
+        return mean_metrics(acc, self.cfg)
 
     # ---- inference / export ------------------------------------------------
     def predict_states(self, dataset: Dataset,
                        indices: Optional[np.ndarray] = None) -> np.ndarray:
         """Deterministic states of the dataset's rows ``indices`` (all rows
-        when None), in that order."""
+        when None), in that order: from the store, streamed, or from a
+        hybrid store's current window and streamed."""
         encoder = StateEncoder(self.cfg, self.model.eval(), self.device)
-        return predict_dataset.predict_states(encoder, self._store(dataset),
-                                              indices)
+        return predict_dataset.predict_dataset(
+            encoder, dataset, self._store(dataset), self._hot_store, indices)
 
     @classmethod
     def load(cls, log_folder: str, device=None) -> "SRL4robotics":

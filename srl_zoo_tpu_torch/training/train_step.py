@@ -1,17 +1,21 @@
-"""Train and eval steps over the device-resident frame store (port of
-``srl_zoo_tpu/training/train_step.py`` ``_loss_fn`` / ``train_step`` /
-``eval_step``, cached mode).
+"""Train and eval steps (port of ``srl_zoo_tpu/training/train_step.py``
+``_loss_fn`` / ``train_step`` / ``eval_step``).
 
-A batch is the loader's index batch (data/loader.py); the store is the
-dict of data/device_cache.py. The gather kernel (K2) reads its rows from
-the uint8 store and normalizes them, and once more the next frames, rows
-``min(i + 1, N - 1)``, when a loss reads the next state (priors, forward,
-inverse, reward). A config that stacks both camera views gathers each
-view from its own store and joins them on the channel axis. The triplet
-loss gathers two more: the positive, the same rows of the second view
-(``frames_2``), and the negative, the rows ``neg_indices`` of the first.
-The indices stay on the host and the metadata goes up without a
-synchronise, so the host can queue a step while the device still runs the
+A batch comes from the loader (data/loader.py) in one of three forms. An
+index batch reads the device-resident store (data/device_cache.py): the
+gather kernel (K2) reads its rows from the uint8 store and normalizes
+them, and once more the next frames, rows ``min(i + 1, N - 1)``, when a
+loss reads the next state (priors, forward, inverse, reward). A config
+that stacks both camera views gathers each view from its own store and
+joins them on the channel axis. The triplet loss gathers two more: the
+positive, the same rows of the second view (``frames_2``), and the
+negative, the rows ``neg_indices`` of the first. A hybrid batch
+(data/hybrid.py) addresses the store by slot instead (``cache_slots``,
+``next_cache_slots``, ``neg_cache_slots``). A streamed batch carries its
+uint8 pixels on the device (data/transfer.py), and K2 normalizes them
+over the identity index, so that it computes what the cached step
+computes, bit for bit. The indices stay on the host and the metadata goes
+up without a synchronise, so the host can queue a step while the device still runs the
 one before. The model runs forward (the pools' K1 forward writes the
 argmax plane), the loss is taken, the backward runs (K1's backward at each
 pool) and the optimizer counts a micro-step (training/state.py: Adam
@@ -97,9 +101,53 @@ def corrupt(cfg, obs: torch.Tensor, corruption) -> torch.Tensor:
     return occlude(obs, corruption, cfg.occlusion_percentage)
 
 
-def _inputs(model: SRLModules, store: Dict[str, torch.Tensor],
-            batch: Dict[str, np.ndarray],
-            generator: Optional[torch.Generator] = None,
+def normalize_streamed(u8, mode: str, device: torch.device) -> torch.Tensor:
+    """A streamed uint8 batch (B, H, W, C) normalized by the gather kernel
+    over the identity index, on ``device`` (a host array goes up first):
+    the same arithmetic as the cached gather of the same frames, so a
+    streamed step computes what the cached step computes, bit for bit. A
+    6-channel batch is one launch: both normalize modes are per-channel
+    affine maps whose 6-channel parameters are the 3-channel ones twice."""
+    if not isinstance(u8, torch.Tensor):
+        u8 = upload(np.asarray(u8), device)
+    return gather_normalize(u8, np.arange(u8.shape[0]), mode)
+
+
+def _images(model: SRLModules, store: Optional[Dict[str, torch.Tensor]],
+            batch: Dict):
+    """(obs, next_obs, pos_obs, neg_obs) normalized on the device, the
+    last three None where no loss reads them: from the batch's uint8
+    pixels (a streamed batch, data/transfer.py), or gathered from the
+    store by row index, or by store slot (``cache_slots``,
+    ``next_cache_slots``, ``neg_cache_slots``: the hybrid store)."""
+    cfg = model.cfg
+    mode = cfg.normalize_mode
+    if "obs" in batch:
+        dev = next(model.parameters()).device
+
+        def norm(key):
+            return normalize_streamed(batch[key], mode, dev)
+        return (norm("obs"), norm("next_obs") if cfg.needs_next_obs else None,
+                norm("pos_obs") if cfg.use_triplet else None,
+                norm("neg_obs") if cfg.use_triplet else None)
+    frames = store["frames"]
+    idx = np.asarray(batch.get("cache_slots", batch["indices"]), np.int64)
+    obs = gather_obs(store, idx, cfg)
+    next_obs = pos_obs = neg_obs = None
+    if cfg.needs_next_obs:
+        nxt = batch.get("next_cache_slots")
+        nxt = np.minimum(idx + 1, frames.shape[0] - 1) if nxt is None \
+            else np.asarray(nxt, np.int64)
+        next_obs = gather_obs(store, nxt, cfg)
+    if cfg.use_triplet:
+        pos_obs = gather_normalize(store["frames_2"], idx, mode)
+        neg = batch.get("neg_cache_slots", batch.get("neg_indices"))
+        neg_obs = gather_normalize(frames, np.asarray(neg, np.int64), mode)
+    return obs, next_obs, pos_obs, neg_obs
+
+
+def _inputs(model: SRLModules, store: Optional[Dict[str, torch.Tensor]],
+            batch: Dict, generator: Optional[torch.Generator] = None,
             corruption=None) -> Dict:
     """The model's and the loss's inputs on the device: ``obs`` (the clean
     frames), ``next_obs`` (None unless a loss reads it), ``pos_obs`` and
@@ -108,30 +156,20 @@ def _inputs(model: SRLModules, store: Dict[str, torch.Tensor],
     ``corruption`` (the DAE's draw: from ``generator`` in train mode, the
     given one in eval mode)."""
     cfg = model.cfg
-    frames = store["frames"]
-    dev = frames.device
     # host indices and metadata go up pinned and non-blocking: building a
     # step's inputs waits for nothing on the device
-    idx = np.asarray(batch["indices"], np.int64)
-    obs = gather_obs(store, idx, cfg)
-    next_obs = gather_obs(store, np.minimum(idx + 1, frames.shape[0] - 1),
-                          cfg) if cfg.needs_next_obs else None
-    pos_obs = neg_obs = None
-    if cfg.use_triplet:
-        pos_obs = gather_normalize(store["frames_2"], idx,
-                                   cfg.normalize_mode)
-        neg_obs = gather_normalize(frames, np.asarray(batch["neg_indices"],
-                                                      np.int64),
-                                   cfg.normalize_mode)
+    obs, next_obs, pos_obs, neg_obs = _images(model, store, batch)
+    dev = obs.device
     tensors = {k: upload(np.asarray(batch[k]), dev, dt)
                for k, dt in _metadata(cfg).items()}
+    b = obs.shape[0]
     noise = None
     if cfg.use_vae and model.training:
-        shape = (len(idx), cfg.state_dim)
-        noise = {name: torch.randn(shape, generator=generator, device=dev)
+        noise = {name: torch.randn((b, cfg.state_dim), generator=generator,
+                                   device=dev)
                  for name in ("state", "next_state")[:1 + cfg.needs_next_obs]}
     if cfg.use_dae and model.training:
-        corruption = draw_corruption(cfg, generator, len(idx), dev)
+        corruption = draw_corruption(cfg, generator, b, dev)
     return {"obs": obs, "next_obs": next_obs, "pos_obs": pos_obs,
             "neg_obs": neg_obs,
             "valid": upload(batch["valid"], dev, torch.float32),
@@ -184,8 +222,9 @@ def _loss(model: SRLModules, inputs: Dict,
                               inputs["batch"])
 
 
-def train_step(model: SRLModules, optimizer, store: Dict[str, torch.Tensor],
-               batch: Dict[str, np.ndarray], generator: torch.Generator,
+def train_step(model: SRLModules, optimizer,
+               store: Optional[Dict[str, torch.Tensor]], batch: Dict,
+               generator: torch.Generator,
                frozen_dae: Optional[SRLModules] = None
                ) -> Dict[str, torch.Tensor]:
     """One micro-step in train mode (BatchNorm batch statistics, running
@@ -201,8 +240,8 @@ def train_step(model: SRLModules, optimizer, store: Dict[str, torch.Tensor],
     return {k: v.detach() for k, v in metrics.items()}
 
 
-def eval_step(model: SRLModules, store: Dict[str, torch.Tensor],
-              batch: Dict[str, np.ndarray], corruption=None,
+def eval_step(model: SRLModules, store: Optional[Dict[str, torch.Tensor]],
+              batch: Dict, corruption=None,
               frozen_dae: Optional[SRLModules] = None
               ) -> Dict[str, torch.Tensor]:
     """The batch's metrics in eval mode (running statistics, the VAE's

@@ -559,8 +559,6 @@ def test_pipeline_bad_grid_value_exits_before_training(pipe_dataset,
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--device-cache", "off"], "queue A item 6"),
-    (["--device-cache", "hybrid"], "queue A item 6"),
     (["--device-cache", "sharded"], "queue A item 8"),
 ])
 def test_pipeline_refuses_through_the_train_cli(pipe_dataset, tmp_path,
@@ -569,6 +567,23 @@ def test_pipeline_refuses_through_the_train_cli(pipe_dataset, tmp_path,
         _pipeline(["--data-folder", pipe_dataset, *PIPE_FLAGS, *flags],
                   tmp_path, monkeypatch)
     assert os.listdir(tmp_path / "logs" / "synth") == []
+
+
+@pytest.mark.parametrize("mode", ["off", "hybrid"])
+def test_pipeline_passes_the_device_cache_to_its_cells(pipe_dataset,
+                                                       tmp_path, monkeypatch,
+                                                       mode):
+    """``--device-cache off`` (streaming) and ``hybrid`` (a store of 24
+    rows) reach each cell's train CLI, which trains and is scored."""
+    monkeypatch.setenv("SRL_ZOO_CACHE_BUDGET_MB",
+                       str(24.5 * 32 * 32 * 3 / 2**20))
+    results = _pipeline(["--data-folder", pipe_dataset, *PIPE_FLAGS,
+                         "--no-grids", "--device-cache", mode], tmp_path,
+                        monkeypatch)
+    with open(os.path.join(tmp_path, results[0]["log_folder"],
+                           "exp_config.json")) as f:
+        assert json.load(f)["device-cache"] == mode
+    assert np.isfinite(results[0]["knn_mse"])
 
 
 def test_pipeline_passes_the_dtype_and_model_types_to_its_cells(
@@ -605,22 +620,58 @@ def test_pipeline_needs_a_gpu_before_any_write(pipe_dataset, tmp_path,
                                    "frames-size", "no-frames"])
 def test_check_dataset_refuses_what_needs_preprocessing(pipe_dataset,
                                                         tmp_path, fault):
+    """What the pipeline once refused it now repairs, as the JAX pipeline
+    does: a folder of record_* episodes without preprocessed_data.npz is
+    preprocessed (equal to the schema it was made from), and a missing
+    frames.npy, or one of another length or size, is rebuilt at the
+    asked size from the JPEGs. A missing folder still raises."""
     from srl_zoo_tpu_torch.pipeline import check_dataset
+    from srl_zoo_tpu_torch.preprocessing.preprocess import frames_cache_stale
     folder = str(tmp_path / "ds")
     shutil.copytree(pipe_dataset, folder)
     check_dataset(folder, 32)  # as written: nothing to do
     frames = np.load(os.path.join(folder, "frames.npy"))
+    pre = dict(np.load(os.path.join(folder, "preprocessed_data.npz")))
+    gt = dict(np.load(os.path.join(folder, "ground_truth.npz")))
     if fault == "no-preprocessed-data":
+        # the recorded episodes that preprocessing reads: each episode's
+        # rewards of acting at frame t are the schema's of arriving at t+1
+        starts = np.nonzero(pre["episode_starts"])[0]
+        for e, (a, b) in enumerate(zip(starts, list(starts[1:]) +
+                                       [len(pre["actions"])])):
+            np.savez(os.path.join(folder, f"record_{e:03d}",
+                                  "episode_data.npz"),
+                     actions=pre["actions"][a:b],
+                     rewards=np.append(pre["rewards"][a + 1:b], 0.0),
+                     ground_truth_states=gt["ground_truth_states"][a:b])
         os.remove(os.path.join(folder, "preprocessed_data.npz"))
     elif fault == "frames-length":
         np.save(os.path.join(folder, "frames.npy"), frames[:-1])
     elif fault == "no-frames":
         os.remove(os.path.join(folder, "frames.npy"))
     size = 64 if fault == "frames-size" else 32
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        check_dataset(folder, size)
+    check_dataset(folder, size)
+    got = np.load(os.path.join(folder, "preprocessed_data.npz"))
+    for k, v in pre.items():
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
+    np.testing.assert_array_equal(
+        np.load(os.path.join(folder, "ground_truth.npz"))["images_path"],
+        gt["images_path"])
+    path = os.path.join(folder, "frames.npy")
+    assert not frames_cache_stale(path, size, len(frames))
+    if size == 32 and fault != "no-preprocessed-data":
+        # rebuilt from the JPEGs with the writer's decoder chain
+        from srl_zoo_tpu.preprocessing.preprocess import build_frames_cache
+        want = np.load(build_frames_cache(
+            _copy_without_frames(folder, tmp_path / "want"), 32))
+        np.testing.assert_array_equal(np.load(path), want)
     with pytest.raises(FileNotFoundError):
         check_dataset(str(tmp_path / "missing"), 32)
+
+
+def _copy_without_frames(src, dst):
+    shutil.copytree(src, dst, ignore=shutil.ignore_patterns("frames*.npy"))
+    return str(dst)
 
 
 # ---------------------------------------------------------------------------

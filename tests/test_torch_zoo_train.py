@@ -1055,11 +1055,8 @@ def test_exp_config_round_trips_between_the_packages(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--device-cache", "hybrid"], "item 6"),
-    (["--stream-overlap"], "item 6"),
-    (["--balanced-sampling"], "item 6"),
-    (["--device-cache", "off"], "item 6"),
     (["--num-processes", "2"], "item 8"),
+    (["--device-cache", "sharded"], "item 8"),
     (["--profile"], "item 9"),
 ])
 def test_unported_flags_name_their_roadmap_item(synthetic_dataset, tmp_path,
@@ -1072,6 +1069,35 @@ def test_unported_flags_name_their_roadmap_item(synthetic_dataset, tmp_path,
                        match=f"ROADMAP.md queue A {item}"):
         main(argv)
     assert not os.path.exists(tmp_path / "run")
+
+
+@pytest.mark.parametrize("flags", [
+    ["--device-cache", "hybrid"],
+    ["--stream-overlap"],
+    ["--balanced-sampling"],
+    ["--device-cache", "off"],
+    ["--device-cache", "hybrid", "--no-hybrid-rotation"],
+])
+def test_data_layer_flags_train_through_the_cli(synthetic_dataset, tmp_path,
+                                                monkeypatch, flags):
+    """The data layer's flags, refused before it was ported, train: a
+    hybrid store under a budget of 40 rows (rotating, or a static prefix),
+    streaming with and without the copy overlap, and balanced sampling;
+    the config records each."""
+    monkeypatch.setenv("SRL_ZOO_CACHE_BUDGET_MB",
+                       str(40.5 * 32 * 32 * 3 / 2**20))
+    run = _cli(synthetic_dataset.data_folder, str(tmp_path / "run"), 2,
+               *flags)
+    cfg = SRLConfig.load(run)
+    assert (cfg.device_cache, cfg.stream_overlap, cfg.balanced_sampling,
+            cfg.hybrid_rotation) == (
+        flags[1] if flags[0] == "--device-cache" else "auto",
+        "--stream-overlap" in flags, "--balanced-sampling" in flags,
+        "--no-hybrid-rotation" not in flags)
+    hist = np.load(os.path.join(run, "loss_history.npz"))
+    assert np.isfinite(hist["train/total"]).all()
+    states = np.load(os.path.join(run, "states_rewards.npz"))["states"]
+    assert states.shape == (synthetic_dataset.n_samples, STATE_DIM)
 
 
 def test_cli_without_device_needs_a_gpu(synthetic_dataset, tmp_path):
