@@ -5,6 +5,8 @@ one NVIDIA GPU.
     python3 chip_smoke.py
     python3 chip_smoke.py --pools-of CHECKOUT
     python3 chip_smoke.py --step-seeds N
+    python3 chip_smoke.py --data-layer
+    python3 chip_smoke.py --dist-tooling
 
 Needs one CUDA card, nvcc (CUDA_HOME or PATH) and this checkout; it builds
 the kernels of ``srl_zoo_tpu_torch/csrc`` itself. Phases, each of which
@@ -59,6 +61,12 @@ prints its wall time:
    corner, timed beside ``torch.cdist`` (the library call), and the
    ``full`` route's top-6 indices against K3's, equal except at counted
    near ties.
+2b. K3 over 4 contiguous blocks of the main shape's 20,000 references on
+   the one card, each block's candidates offset and merged by
+   ``merge_topk`` (the merge of ``knn_topk_sharded``), against K3 over
+   the whole set: indices equal but at counted near ties, distances
+   within 1e-5 relative; the block calls, the merge and the whole-set
+   call timed (CUDA events). Launches counted from zero: 4 of K3.
 3. The inference path at the full width of config 1 (custom_cnn,
    224x224x3, state_dim 200), from a seeded random model saved as a run
    folder: the HTTP server (coalescing 5 ms, max batch 32) answers two
@@ -138,6 +146,15 @@ prints its wall time:
    and K4 and no pool. 8 bf16 steps each of configs 1 and 5 are
    profiled beside their f32 profiles, the pools' inputs checked to be
    channels_last bf16.
+4a. Config 1 (224x224x3, state_dim 200, batch 32) through the train CLI
+   with ``--profile`` for one epoch of 640 rows: the trace must hold K1f,
+   K1b and K2 launches under the kernels' names and sum device time
+   (``utils/profiling.py``, whose top-12 table is printed); launch counts
+   zeroed just before and read just after. Then the doctor on phase 4's
+   dataset (``utils/doctor.py``): its pinned bandwidth and the mode it
+   names, which must be the whole store. It runs before phase 4's
+   configs, right after the dataset is written: after phase 4's training
+   profiles CUPTI has been seen to record no kernel at all.
 4b. The data layer at the same width (224x224x3, state_dim 200, batch
    32). 1,024 frames of phase 4's scene (both views, four episodes) are
    recorded as JPEG episodes with ``DatasetRecorder`` and preprocessed
@@ -164,6 +181,18 @@ prints its wall time:
    by slot), and prints images/s by epoch and by phase (the learner's
    synchronised phase timing: hot, cold, adoption, rotation with its
    swept rows) and which routes of the native runtime served.
+4c. A process group of world size 1 over nccl (``parallel/mesh.py``), in
+   which config 1 trains through the train CLI for 2 epochs with
+   ``--device-cache sharded`` and then ``on``, cuDNN on its
+   deterministic algorithms; each run's collectives and launches counted
+   from zero (the sharded run must launch K2, K1f and K1b and gather by
+   reduce-scatter), and the two runs' losses and exported states must be
+   equal bit for bit. Then an account of what the group costs config 1's
+   step at batch 32 (wall ms, best of three windows of 30 steps): in the
+   group, with ``nn.BatchNorm2d``'s own forward in place of the global
+   BatchNorm, with the NCCL calls skipped, and without a group; a
+   torch.profiler trace of the group's step and of the lone step, summed
+   by the operators' CPU self time.
 5. The pipeline at full width: BASELINE config 5 (triplet, ResNet-18,
    ``--multi-view``, 224x224x3, state_dim 200, batch 32, 2 epochs, seeds
    1 and 2) through ``srl_zoo_tpu_torch.pipeline.main`` on phase 4's
@@ -196,6 +225,9 @@ one run on one card.
 
 With ``--data-layer`` it runs phase 2's K2 over the identity index and
 phase 4b alone, on a freshly written phase 4 dataset.
+
+With ``--dist-tooling`` it runs phases 2b, 4a and 4c alone, on a freshly
+written phase 4 dataset.
 
 With ``--step-seeds N`` it runs only phase 4's card-vs-CPU step of the
 two ResNet configs and the two bf16 configs at seeds 0..N-1, holds
@@ -1787,27 +1819,40 @@ def profile_training(dev, data_folder: str, name: str, tokens,
     log(f"{name}: the {len(layouts)} pool calls of a step read their "
         f"{str(dtype)[6:]} BatchNorm outputs in place (channels_last)")
     steps = [next(batches) for _ in range(PROFILE_STEPS + 1)]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=PROFILE_STEPS,
-                                   repeat=1)) as prof:
-        step(steps[0])
-        torch.cuda.synchronize()
-        prof.step()  # the warm-up step ends: the window opens
-        t0 = time.perf_counter()
-        for i, batch in enumerate(steps[1:]):
-            step(batch)
-            if i == PROFILE_STEPS - 1:
-                torch.cuda.synchronize()
-                wall_us = (time.perf_counter() - t0) * 1e6
-            prof.step()
-    # a range such as the optimizer's "Optimizer.step#Adam.step" shows on
-    # the device as a span from its first to its last kernel, idle gaps
-    # included; its kernels are listed on their own, so it is left out
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0
-               and not getattr(e, "is_user_annotation", False)
-               and not e.key.startswith("Optimizer.")]
+    # one gather per encoder pass and camera view
+    gathers = PROFILE_STEPS * passes * (2 if cfg.stack_views else 1)
+    # CUPTI now and then drops a kernel record (see device_ms): a window
+    # that lost a gather is profiled again, up to three times
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1,
+                                       active=PROFILE_STEPS,
+                                       repeat=1)) as prof:
+            step(steps[0])
+            torch.cuda.synchronize()
+            prof.step()  # the warm-up step ends: the window opens
+            t0 = time.perf_counter()
+            for i, batch in enumerate(steps[1:]):
+                step(batch)
+                if i == PROFILE_STEPS - 1:
+                    torch.cuda.synchronize()
+                    wall_us = (time.perf_counter() - t0) * 1e6
+                prof.step()
+        # a range such as the optimizer's "Optimizer.step#Adam.step" shows
+        # on the device as a span from its first to its last kernel, idle
+        # gaps included; its kernels are listed on their own, so it is
+        # left out
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0
+                   and not getattr(e, "is_user_annotation", False)
+                   and not e.key.startswith("Optimizer.")]
+        k2 = sum(e.count for e in kernels if "gather_norm" in e.key)
+        if k2 == gathers:
+            break
+        log(f"{name}: the profile holds {k2} K2 launches of its steps' "
+            f"{gathers} (attempt {attempt + 1}): profiled again")
     busy = sum(e.self_device_time_total for e in kernels)
     log(f"{name}: profile train {PROFILE_STEPS} steps of batch "
         f"{TRAIN_BATCH}: wall "
@@ -1827,8 +1872,6 @@ def profile_training(dev, data_folder: str, name: str, tokens,
         launched[what] = sum(e.count for e in mine)
         log(f"  {what}: {t / 1e3:.3f} ms ({100 * t / max(busy, 1e-9):.1f}% "
             f"of busy), {launched[what]} launches")
-    # one gather per encoder pass and camera view
-    gathers = PROFILE_STEPS * passes * (2 if cfg.stack_views else 1)
     if launched["K2"] != gathers:
         raise AssertionError(f"{name}: the profile holds {launched['K2']} "
                              f"K2 launches of its steps' {gathers}")
@@ -2457,6 +2500,313 @@ def run_data_layer(data_folder: str, work: str, dev, counters) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 2b: K3 over reference blocks; phases 4a and 4c: the tooling and a
+# process group
+# ---------------------------------------------------------------------------
+
+KNN_SHARDS = 4
+PROFILE_ROWS = 640  # --training-set-size of the profiled epoch: 16 steps
+PROFILED = {"relu_max_pool": "relu_max_pool_fwd",
+            "relu_max_pool_bwd": "relu_max_pool_bwd",
+            "gather_normalize": "gather_norm_kernel"}
+
+
+def check_knn_sharded(dev, g, counters) -> dict:
+    """Phase 2b: K3 over KNN_SHARDS blocks of the main shape's references
+    on the one card, each block's candidates offset and merged
+    (``merge_topk``, the merge of ``knn_topk_sharded``), against K3 over
+    the whole set: indices equal but at counted near ties, distances
+    within 1e-5 relative. The merge is timed beside K3 (CUDA events).
+    Returns the blocks' K3 launches, counted from zero."""
+    import torch
+    from srl_zoo_tpu_torch.ops.knn_topk import (knn_topk_with_dist,
+                                                merge_topk, reference_block)
+    nq, n, d, k = KNN_QUERIES, N_FRAMES, STATE_DIM, 6
+    q = torch.randn((nq, d), generator=g, device=dev)
+    refs = torch.randn((n, d), generator=g, device=dev)
+    blocks = [reference_block(refs, KNN_SHARDS, b) for b in range(KNN_SHARDS)]
+
+    def local():
+        out = []
+        for block, start in blocks:
+            bd, bi = knn_topk_with_dist(q, block, k)
+            out.append((bd, bi + start))
+        return out
+
+    zero_counts(counters)
+    parts = local()
+    md, mi = merge_topk(parts, k)
+    torch.cuda.synchronize()
+    launches = read_counts(counters, "sharded K3 path")
+    wd, wi = knn_topk_with_dist(q, refs, k)
+    rel = float(((md - wd).abs() / wd.abs().clamp_min(1e-30)).max())
+    if not rel <= 1e-5:
+        raise AssertionError(f"sharded K3: distances max rel err {rel}")
+    ties = near_tie_mismatches(q, refs, mi, wi, 1e-5)
+    merge_ms = time_ms(lambda: merge_topk(parts, k))
+    local_ms = time_ms(local)
+    whole_ms = time_ms(lambda: knn_topk_with_dist(q, refs, k))
+    log(f"K3 over {KNN_SHARDS} blocks of {blocks[0][0].shape[0]} references "
+        f"(Q={nq}, N={n}, D={d}, k={k}): merged top-{k} vs K3 over the "
+        f"whole set: max rel err {rel:.3g}, {ties} index mismatches at "
+        f"near-ties; the {KNN_SHARDS} block calls {local_ms:.4f} ms, the "
+        f"merge {merge_ms:.4f} ms, K3 over the whole set {whole_ms:.4f} ms "
+        "(CUDA events)")
+    if launches["knn_topk"] != KNN_SHARDS:
+        raise AssertionError(f"sharded K3 launched {launches['knn_topk']} "
+                             f"K3 calls, {KNN_SHARDS} expected")
+    return launches
+
+
+def run_profile(data_folder: str, run_dir: str, counters) -> dict:
+    """Phase 4a: config 1 through the train CLI with ``--profile`` for one
+    short epoch (PROFILE_ROWS rows, batch 32); the trace must hold K1f,
+    K1b and K2 launches under the kernels' own names, and its summary
+    (``utils/profiling.py``) must sum device time; its top table is
+    printed. Then the doctor on the same dataset: its pinned bandwidth and
+    the mode it names (the whole store is expected). Returns the run's
+    launches, counted from zero."""
+    import contextlib
+    from srl_zoo_tpu_torch import train as train_cli
+    from srl_zoo_tpu_torch.utils import doctor, profiling
+    # CUPTI now and then drops kernel records (see device_ms): a trace
+    # that lacks one of the kernels is taken again, once
+    for attempt in range(2):
+        run = f"{run_dir}_{attempt}"
+        zero_counts(counters)
+        t0 = time.perf_counter()
+        train_cli.main(["--data-folder", data_folder, "--losses",
+                        "autoencoder", "--state-dim", str(STATE_DIM), "-bs",
+                        str(TRAIN_BATCH), "--epochs", "1",
+                        "--training-set-size", str(PROFILE_ROWS),
+                        "--log-folder", run, "--profile"])
+        launches = read_counts(counters, "--profile run")
+        log(f"--profile run (1 epoch of {PROFILE_ROWS} rows) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        basis, rows = profiling.summarize_profile_dir(
+            os.path.join(run, "profile"), top=10**6)
+        traced = {k: sum(r.calls for r in rows if name in r.name)
+                  for k, name in PROFILED.items()}
+        for kernel, name in PROFILED.items():
+            log(f"trace: {traced[kernel]} launches of {name} ({kernel}: "
+                f"{launches[kernel]} counted in the run)")
+        if basis == profiling.DEVICE_TIME and all(traced.values()):
+            break
+    if basis != profiling.DEVICE_TIME:
+        raise AssertionError(f"the --profile trace has no device time "
+                             f"({basis})")
+    missing = [k for k, n in traced.items() if not n or not launches[k]]
+    if missing:
+        raise AssertionError(f"{missing} not in the --profile trace")
+    log("profile summary, top 12:\n" + profiling.format_table(basis,
+                                                              rows[:12]))
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = doctor.main(["--data-folder", data_folder, "--img-size",
+                          str(IMG[0]), "-bs", str(TRAIN_BATCH)])
+    text = out.getvalue()
+    lines = [ln for ln in text.splitlines()
+             if "MB/s" in ln or "mode:" in ln or "device:" in ln
+             or "budget" in ln]
+    log("doctor: " + " | ".join(lines))
+    if rc != 0 or "mode: whole store" not in text or "MB/s" not in text:
+        raise AssertionError(f"doctor rc {rc}:\n{text}")
+    return launches
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_process_group(data_folder: str, work: str, dev, counters) -> dict:
+    """Phase 4c: a process group of world size 1 over nccl
+    (``parallel/mesh.py``), in which config 1 trains through the train CLI
+    for 2 epochs with ``--device-cache sharded`` and then with the whole
+    store (``on``). Each run's collectives and launches are counted from
+    zero; the sharded run must launch K2, K1f and K1b and gather by
+    reduce-scatter, and both runs' losses and exported states must be
+    equal bit for bit. cuDNN runs its deterministic algorithms in both:
+    its default weight-gradient algorithms add in a varying order, and
+    two runs of one config then part in the fourth digit of the loss on
+    the H100. Then ``group_cost`` in the group and without it. Returns
+    the sharded run's launches."""
+    import torch
+    from srl_zoo_tpu_torch import train as train_cli
+    from srl_zoo_tpu_torch.parallel import mesh
+    mesh.initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0, dev)
+    torch.backends.cudnn.deterministic = True
+    results = {}
+    try:
+        timer = _StepTimer(data_folder, dev)
+        for mode in ("sharded", "on"):
+            zero_counts(counters)
+            mesh.zero_counts()
+            t0 = time.perf_counter()
+            run = train_cli.main([
+                "--data-folder", data_folder, "--losses", "autoencoder",
+                "--state-dim", str(STATE_DIM), "-bs", str(TRAIN_BATCH),
+                "--epochs", "2", "--device-cache", mode, "--log-folder",
+                f"{work}/{mode}"])
+            secs = time.perf_counter() - t0
+            launches = read_counts(counters, f"process group, {mode}")
+            results[mode] = (run, launches, dict(mesh.counts))
+            log(f"world size 1 over {mesh.dist.get_backend()}, "
+                f"--device-cache {mode}: 2 epochs, export and GTC in "
+                f"{secs:.1f} s; collectives {mesh.counts}")
+        torch.backends.cudnn.deterministic = False
+        cost = group_cost(timer, grouped=True)
+    finally:
+        torch.backends.cudnn.deterministic = False
+        mesh.shutdown()
+    cost.update(group_cost(timer, grouped=False))
+    log("config 1's train step at batch 32, wall ms (best of 3 windows of "
+        f"{GROUP_STEPS}): " + "; ".join(f"{k} {v:.3f}"
+                                        for k, v in cost.items()))
+    run, launches, coll = results["sharded"]
+    if not (launches["gather_normalize"] and launches["relu_max_pool"]
+            and launches["relu_max_pool_bwd"] and coll["reduce_scatter"]):
+        raise AssertionError(f"sharded run: launches {launches}, "
+                             f"collectives {coll}")
+    for name in ("loss_history.npz", "states_rewards.npz"):
+        a = np.load(os.path.join(run, name))
+        b = np.load(os.path.join(results["on"][0], name))
+        for key in a.files:
+            if not np.array_equal(a[key], b[key]):
+                raise AssertionError(f"sharded vs whole store: {name} "
+                                     f"{key} differs")
+    log("sharded store vs whole store at world size 1: losses and exported "
+        "states equal bit for bit")
+    return launches
+
+
+GROUP_STEPS = 30  # train steps a timed window of phase 4c's account
+
+
+class _StepTimer:
+    """Config 1's train step at batch 32 on the whole store, timed: the
+    model, optimizer and batches are built once and reused by every
+    variant of phase 4c's account."""
+
+    def __init__(self, data_folder: str, dev):
+        import torch
+        from srl_zoo_tpu_torch.data.device_cache import build_cache
+        from srl_zoo_tpu_torch.data.loader import DataLoader, batch_flags
+        from srl_zoo_tpu_torch.data.schema import load_dataset
+        from srl_zoo_tpu_torch.training.state import (make_model,
+                                                      make_optimizer)
+        from srl_zoo_tpu_torch.training.train_step import train_step
+        cfg = train_config(("autoencoder",), TRAIN_BATCH)
+        dataset = load_dataset(data_folder)
+        store = build_cache(dataset, dev)
+        model = make_model(cfg, dev)
+        opt = make_optimizer(cfg, model)
+        loader = iter(DataLoader(dataset, dataset.training_indices(),
+                                 TRAIN_BATCH, seed=SEED, **batch_flags(cfg)))
+        self.batches = [next(loader) for _ in range(GROUP_STEPS)]
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        self.step = lambda b: train_step(model, opt, store, b, gen)
+
+    def ms(self) -> float:
+        """Wall ms a step: the best of three windows of GROUP_STEPS steps,
+        each closed by a synchronise, after two warm steps."""
+        import torch
+        for b in self.batches[:2]:
+            self.step(b)
+        best = float("inf")
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for b in self.batches:
+                self.step(b)
+            torch.cuda.synchronize()
+            best = min(best, (time.perf_counter() - t0) * 1e3 / GROUP_STEPS)
+        return best
+
+    def profile(self, name: str) -> None:
+        """CPU self time by operator, and the device's busy share, over
+        PROFILE_STEPS steps (torch.profiler); the top 12 operators and the
+        host time of the collectives and their clones are printed."""
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+        from srl_zoo_tpu_torch.utils import profiling
+        for b in self.batches[:2]:
+            self.step(b)
+        torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for b in self.batches[:PROFILE_STEPS]:
+                    self.step(b)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            _, dev_rows = profiling.summarize_trace(path, top=10**6)
+            basis, rows = profiling.summarize_trace(
+                path, top=10**6, basis=profiling.CPU_SELF_TIME)
+        busy = sum(r.ms for r in dev_rows)
+        host = sum(r.ms for r in rows)
+
+        def share(*keys):
+            ms = sum(r.ms for r in rows if any(k in r.name for k in keys))
+            return (f"{ms / PROFILE_STEPS:.3f} ms a step "
+                    f"({100 * ms / host:.1f}%)")
+        log(f"{name}: {PROFILE_STEPS} steps in {wall:.2f} ms "
+            f"({wall / PROFILE_STEPS:.2f} ms a step), device busy "
+            f"{busy:.2f} ms ({100 * busy / wall:.1f}%); operators' CPU self "
+            f"time {host / PROFILE_STEPS:.2f} ms a step, of which the "
+            f"collectives {share('nccl:', 'c10d::', 'record_param_comms')}, "
+            f"clones {share('aten::clone')}; top 12:\n"
+            + profiling.format_table(basis, rows[:12]))
+
+
+def group_cost(timer: "_StepTimer", grouped: bool) -> dict:
+    """Phase 4c's account of what the process group costs config 1's step:
+    wall ms a step in the group as it runs, with nn.BatchNorm2d's own
+    (cuDNN) forward in place of the global BatchNorm, and with the
+    collectives' NCCL calls skipped (at world size 1 each leaves its
+    tensor as it is: the step computes the same numbers); without a group,
+    the step alone (``grouped`` False). One profile of each of the group's
+    step and the lone step."""
+    import contextlib
+    from unittest import mock
+    import torch
+    from srl_zoo_tpu_torch.models.batchnorm import BatchNorm
+    from srl_zoo_tpu_torch.parallel import mesh
+    if not grouped:
+        timer.profile("no group")
+        return {"no group": timer.ms()}
+
+    def no_nccl():
+        stack = contextlib.ExitStack()
+        copy = lambda out, t, *a, **k: out.copy_(t)  # noqa: E731
+        for name, fn in (("all_reduce", lambda t, *a, **k: None),
+                         ("all_gather_single", copy),
+                         ("all_gather_into_tensor", copy),
+                         ("reduce_scatter_single", copy),
+                         ("reduce_scatter_tensor", copy)):
+            if hasattr(mesh.dist, name):
+                stack.enter_context(mock.patch.object(mesh.dist, name, fn))
+        return stack
+
+    variants = {
+        "group": contextlib.nullcontext,
+        "group, nn.BatchNorm2d's forward": lambda: mock.patch.object(
+            BatchNorm, "forward", torch.nn.BatchNorm2d.forward),
+        "group, NCCL calls skipped": no_nccl}
+    timer.profile("group")
+    out = {}
+    for name, patch in variants.items():
+        with patch():
+            out[name] = timer.ms()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the pipeline
 # ---------------------------------------------------------------------------
 
@@ -2566,6 +2916,17 @@ def check_latent_sweeps(run_dir: str) -> None:
         "its largest value")
 
 
+def kernel_counters() -> dict:
+    """Each kernel's wrapper by name: the launch counts live on them."""
+    from srl_zoo_tpu_torch.ops import (fused_pool, gather_norm, knn_topk,
+                                       pairwise)
+    return {"relu_max_pool": fused_pool.relu_max_pool,
+            "relu_max_pool_bwd": fused_pool.relu_max_pool_bwd,
+            "gather_normalize": gather_norm.gather_normalize,
+            "knn_topk": knn_topk.knn_topk_with_dist,
+            "pairwise_sqdist": pairwise.pairwise_sqdist}
+
+
 def kernels_only(card: str, tree: str) -> int:
     """Phase 2's main-shape checks and timings of the pools (K1f, K1b), the
     gather (K2) and the top-k (K3) alone, on the port package of ``tree``
@@ -2601,17 +2962,11 @@ def data_layer_only(card: str) -> int:
     """K2 over the identity index (phase 2) and phase 4b alone, on a
     freshly written phase 4 dataset, and the card."""
     import torch
-    from srl_zoo_tpu_torch.ops import (fused_pool, gather_norm, knn_topk,
-                                       pairwise)
     from srl_zoo_tpu_torch.utils.device import (resolve_device,
                                                 use_strict_float32)
     dev = resolve_device(None)
     use_strict_float32()
-    counters = {"relu_max_pool": fused_pool.relu_max_pool,
-                "relu_max_pool_bwd": fused_pool.relu_max_pool_bwd,
-                "gather_normalize": gather_norm.gather_normalize,
-                "knn_topk": knn_topk.knn_topk_with_dist,
-                "pairwise_sqdist": pairwise.pairwise_sqdist}
+    counters = kernel_counters()
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         write_train_dataset(f"{tmp}/data")
@@ -2627,14 +2982,54 @@ def data_layer_only(card: str) -> int:
     return 0
 
 
+def run_tooling(data_folder: str, work: str, dev, counters) -> dict:
+    t0 = time.perf_counter()
+    launches = run_profile(data_folder, f"{work}/profiled", counters)
+    log(f"phase 4a (--profile, profile summary, doctor) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def run_group(data_folder: str, work: str, dev, counters) -> dict:
+    t0 = time.perf_counter()
+    launches = run_process_group(data_folder, f"{work}/group", dev, counters)
+    log(f"phase 4c (process group of world size 1) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def dist_tooling_only(card: str) -> int:
+    """Phases 2b, 4a and 4c alone, on a freshly written phase 4 dataset,
+    and the card."""
+    import torch
+    from srl_zoo_tpu_torch.utils.device import (resolve_device,
+                                                use_strict_float32)
+    dev = resolve_device(None)
+    use_strict_float32()
+    counters = kernel_counters()
+    t0 = time.perf_counter()
+    check_knn_sharded(dev, torch.Generator(device=dev).manual_seed(SEED),
+                      counters)
+    log(f"phase 2b in {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_train_dataset(f"{tmp}/data")
+        log(f"training dataset written in {time.perf_counter() - t0:.1f} s")
+        run_tooling(f"{tmp}/data", tmp, dev, counters)
+        run_group(f"{tmp}/data", tmp, dev, counters)
+    print(card)
+    return 0
+
+
 def main(argv) -> int:
     tree = seeds = None
     data_only = argv == ["--data-layer"]
-    if argv and not data_only:
+    dist_only = argv == ["--dist-tooling"]
+    if argv and not (data_only or dist_only):
         if len(argv) != 2 or argv[0] not in ("--pools-of", "--step-seeds") \
                 or argv[0] == "--step-seeds" and not argv[1].isdigit():
             print("usage: chip_smoke.py [--pools-of CHECKOUT | --step-seeds "
-                  "N | --data-layer]", file=sys.stderr)
+                  "N | --data-layer | --dist-tooling]", file=sys.stderr)
             return 2
         if argv[0] == "--step-seeds":
             seeds = int(argv[1])
@@ -2652,8 +3047,7 @@ def main(argv) -> int:
               file=sys.stderr)
         return 2
     try:
-        from srl_zoo_tpu_torch.ops import (_build, fused_pool, gather_norm,
-                                           knn_topk, pairwise)
+        from srl_zoo_tpu_torch.ops import _build
     except ImportError as e:
         print(f"chip_smoke: the port package is missing ({e}); run from "
               "the root of a checkout", file=sys.stderr)
@@ -2675,6 +3069,8 @@ def main(argv) -> int:
             return 0
         if data_only:
             return data_layer_only(card)
+        if dist_only:
+            return dist_tooling_only(card)
 
         from srl_zoo_tpu_torch.checkpoint import save_srl_model
         from srl_zoo_tpu_torch.config import SRLConfig
@@ -2715,18 +3111,19 @@ def main(argv) -> int:
         check_knn_ragged(dev, g)
         stats["pairwise_sqdist"] = check_pairwise(dev, g)
         log(f"phase 2 (kernels) in {time.perf_counter() - t0:.1f} s")
+        counters = kernel_counters()
+        t0 = time.perf_counter()
+        knn_blocks = check_knn_sharded(dev, g, counters)
+        log(f"phase 2b (K3 over {KNN_SHARDS} reference blocks) in "
+            f"{time.perf_counter() - t0:.1f} s")
 
         t0 = time.perf_counter()
         cfg = SRLConfig(state_dim=STATE_DIM, img_height=IMG[0],
                         img_width=IMG[1])
-        counters = {"relu_max_pool": fused_pool.relu_max_pool,
-                    "relu_max_pool_bwd": fused_pool.relu_max_pool_bwd,
-                    "gather_normalize": gather_norm.gather_normalize,
-                    "knn_topk": knn_topk.knn_topk_with_dist,
-                    "pairwise_sqdist": pairwise.pairwise_sqdist}
         with tempfile.TemporaryDirectory() as run_dir:
             save_srl_model(run_dir, random_model(cfg, SEED))
             launches = run_slice(run_dir, frames_np, store, gt, counters)
+        launches = {k: launches[k] + knn_blocks[k] for k in counters}
         del store, frames_np
         log(f"phase 3 (inference) in {time.perf_counter() - t0:.1f} s")
 
@@ -2736,6 +3133,10 @@ def main(argv) -> int:
             log(f"training dataset ({TRAIN_FRAMES} frames of "
                 f"{TRAIN_EPISODES} episodes) written in "
                 f"{time.perf_counter() - t0:.1f} s")
+            # before phase 4's training profiles: after them CUPTI has
+            # been seen to record no kernel at all
+            ran = run_tooling(f"{tmp}/data", tmp, dev, counters)
+            launches = {k: launches[k] + ran[k] for k in counters}
             for name, tokens, epochs, model_kw in TRAIN_CONFIGS:
                 t0 = time.perf_counter()
                 check_train_step_on_cpu(dev, name, tokens, model_kw)
@@ -2785,6 +3186,8 @@ def main(argv) -> int:
                                   counters)
             launches = {k: launches[k] + data[k] for k in counters}
             log(f"phase 4b (data layer) in {time.perf_counter() - t0:.1f} s")
+            ran = run_group(f"{tmp}/data", tmp, dev, counters)
+            launches = {k: launches[k] + ran[k] for k in counters}
 
             t0 = time.perf_counter()
             piped = run_pipeline(f"{tmp}/data", f"{tmp}/pipeline", counters)

@@ -9,10 +9,8 @@ recorded before that key existed and trained at flax's 0.99.
 
 Every loss of the zoo trains, on every model type (custom_cnn, resnet,
 mlp, linear) at either compute dtype (float32, bfloat16), with every
-``--device-cache`` mode but ``sharded``, which raises
-``NotImplementedError`` naming the ROADMAP.md item it waits for.
-Loading a config for inference checks only what the encode path needs;
-``check_trainable`` adds what training needs.
+``--device-cache`` mode (data/device_cache.py says which of them a
+process group of several ranks takes).
 """
 
 from __future__ import annotations
@@ -165,15 +163,6 @@ class SRLConfig:
             raise ValueError(
                 "Multiple reconstruction losses must share one state slice "
                 f"(got {recon_slices}); give later ones split dim -1")
-
-    def check_trainable(self) -> None:
-        """Raise NotImplementedError, naming its ROADMAP.md item, for what
-        the port cannot train yet: the frame store sharded over several
-        GPUs."""
-        if self.device_cache == "sharded":
-            raise NotImplementedError(
-                "--device-cache sharded is not ported yet: ROADMAP.md queue "
-                "A item 8 'Multi-GPU'")
 
     # ---- derived helpers ---------------------------------------------------
     @property

@@ -15,11 +15,20 @@ hybrid). ``--device-cache`` picks the mode (``open_store``):
 * ``on``: the whole store, or an error when it does not fit;
 * ``off``: streaming (the loader's uint8 batches, data/transfer.py);
 * ``hybrid``: the hybrid store, whose size is the budget's;
-* ``sharded`` (a JAX run's multi-chip store, which the port does not
-  train with) exports as ``auto`` does.
+* ``sharded``: the store split over the ranks of a process group
+  (ops/sharded_store.py), each rank holding its block of rows; its budget
+  is the sum of the ranks' (one rank without a group holds all rows).
+
+In a process group of more than one rank, ``on``, ``sharded`` and an
+``auto`` that finds the whole store fits are taken; streaming and the
+hybrid store (``off``, ``hybrid``, an ``auto`` that would pick either)
+raise NotImplementedError (ROADMAP.md A8b). ``plan`` makes the choice,
+which ``utils/doctor.py`` reports.
 
 A store is only built from a cache at the training resolution (both views
-where the config reads the second); any other dataset streams.
+where the config reads the second); any other dataset streams. The gathers
+(``gather_view``, ``gather_obs``) take the global batch's index and give
+this rank's rows of it (parallel/mesh.py; all rows without a group).
 """
 
 from __future__ import annotations
@@ -32,6 +41,9 @@ import torch
 
 from srl_zoo_tpu_torch.data.schema import Dataset
 from srl_zoo_tpu_torch.ops.gather_norm import gather_normalize
+from srl_zoo_tpu_torch.ops.sharded_store import (ShardedStore,
+                                                 build_sharded_cache)
+from srl_zoo_tpu_torch.parallel import mesh
 from srl_zoo_tpu_torch.utils.misc import printGreen, printYellow
 
 # share of the device's free memory that the store may take
@@ -125,58 +137,116 @@ def build_cache(dataset: Dataset, device: torch.device,
     return store
 
 
-def open_store(dataset: Dataset, cfg, device: torch.device,
-               second_view: Optional[bool] = None):
-    """(store, hot_store) of ``cfg.device_cache`` (see the module note):
-    (whole store, None), (the hybrid store's tensors, its
-    ``RotatingHotStore``) or (None, None) to stream. The store holds the
-    second view where ``second_view`` says (default: where training reads
-    it; an export reads it only where the views are stacked)."""
-    mode = cfg.device_cache
+A8B = ("streaming and the hybrid store across processes are not ported "
+       "yet: ROADMAP.md queue A item 8b 'Streaming and hybrid rotation "
+       "across processes'")
+
+
+def plan(dataset: Dataset, hw, second_view: bool, mode: str,
+         batch_size: int, budget: Optional[int], world: int = 1
+         ) -> Tuple[str, int]:
+    """(kind, rows) of the store ``mode`` opens for ``dataset`` at ``hw``
+    within ``budget`` bytes a device (None: no limit) on ``world`` ranks:
+    ("whole", N), ("sharded", N), ("hybrid", resident rows) or ("stream",
+    0). Raises where the mode cannot be met."""
+    n = dataset.n_samples
+    if mode == "sharded":
+        total = None if budget is None else budget * world
+        if not fits(dataset, hw, second_view, total):
+            raise ValueError(
+                f"--device-cache sharded, but the dataset exceeds the "
+                f"{world}-rank budget or has no frames.npy at the training "
+                "resolution")
+        return "sharded", n
+    if world > 1 and mode in ("off", "hybrid"):
+        raise NotImplementedError(f"--device-cache {mode}: {A8B}")
     if mode == "off":
-        return None, None
-    hw = (cfg.img_height, cfg.img_width)
-    second = cfg.needs_second_view if second_view is None else second_view
-    budget = budget_bytes(device)
-    if mode != "hybrid" and fits(dataset, hw, second, budget):
-        nbytes = cache_nbytes(dataset, second)
-        printGreen(f"Caching dataset on {device} ({nbytes / 2**20:.0f} MiB)")
-        return build_cache(dataset, device, second), None
+        return "stream", 0
+    if mode != "hybrid" and fits(dataset, hw, second_view, budget):
+        return "whole", n
     if mode == "on":
         raise ValueError("--device-cache on, but the dataset does not fit "
                          "the device budget or has no frames.npy at the "
                          "training resolution")
-    hot_n = hybrid_hot_n(dataset, hw, second, budget)
+    if world > 1:
+        raise NotImplementedError(f"--device-cache auto found that the "
+                                  f"dataset does not fit one device: {A8B}")
+    hot_n = hybrid_hot_n(dataset, hw, second_view, budget)
     if mode == "hybrid" and hot_n == 0:
         raise ValueError("--device-cache hybrid, but the dataset has no "
                          "frames.npy at the training resolution")
-    if hot_n >= dataset.n_samples:
+    if hot_n >= n:
         # a forced hybrid store that holds every row is the whole store
+        return "whole", n
+    if hot_n >= 2 * batch_size:
+        return "hybrid", hot_n
+    return "stream", 0
+
+
+def open_store(dataset: Dataset, cfg, device: torch.device,
+               second_view: Optional[bool] = None):
+    """(store, hot_store) of ``cfg.device_cache`` (see the module note):
+    (whole store, None), (``ShardedStore``, None), (the hybrid store's
+    tensors, its ``RotatingHotStore``) or (None, None) to stream. The
+    store holds the second view where ``second_view`` says (default: where
+    training reads it; an export reads it only where the views are
+    stacked)."""
+    hw = (cfg.img_height, cfg.img_width)
+    second = cfg.needs_second_view if second_view is None else second_view
+    kind, rows = plan(dataset, hw, second, cfg.device_cache, cfg.batch_size,
+                      budget_bytes(device), mesh.world())
+    if kind == "whole":
+        nbytes = cache_nbytes(dataset, second)
+        printGreen(f"Caching dataset on {device} ({nbytes / 2**20:.0f} MiB)")
         return build_cache(dataset, device, second), None
-    if hot_n >= 2 * cfg.batch_size:
+    if kind == "sharded":
+        nbytes = cache_nbytes(dataset, second)
+        w = mesh.world()
+        printGreen(f"Sharding dataset over {w} rank(s) ({nbytes / 2**20:.0f} "
+                   f"MiB in all, {nbytes / w / 2**20:.0f} MiB a rank)")
+        return build_sharded_cache(dataset, device, second), None
+    if kind == "hybrid":
         from srl_zoo_tpu_torch.data.hybrid import RotatingHotStore
         how = "rotating residency" if cfg.hybrid_rotation \
             else "static prefix (--no-hybrid-rotation)"
-        printGreen(f"Hybrid device cache: {hot_n}/{dataset.n_samples} frames "
+        printGreen(f"Hybrid device cache: {rows}/{dataset.n_samples} frames "
                    f"resident ({how}), the rest streams each epoch")
-        hot = RotatingHotStore(dataset, device, cfg, hot_n,
+        hot = RotatingHotStore(dataset, device, cfg, rows,
                                rotate=cfg.hybrid_rotation, second_view=second)
         return hot.cache, hot
-    if hot_n > 0:
-        printYellow(f"the device budget holds only {hot_n} frames (fewer "
-                    "than two batches): streaming instead")
+    if cfg.device_cache != "off":
+        printYellow("the device budget holds fewer than two batches of "
+                    "frames (or the dataset has no frames.npy at the "
+                    "training resolution): streaming")
     return None, None
 
 
-def gather_obs(store: Dict[str, torch.Tensor], idx, cfg) -> torch.Tensor:
+def store_rows(store) -> int:
+    """Rows of a store: the dataset's for a whole or sharded store, the
+    slots of a hybrid one."""
+    if isinstance(store, ShardedStore):
+        return store.rows
+    return store["frames"].shape[0]
+
+
+def gather_view(store, view: str, idx, mode: str) -> torch.Tensor:
+    """This rank's rows of the normalized frames ``idx`` (a host index of
+    the global batch) of one camera view: K2 from a whole or hybrid store,
+    or the sharded store's gather."""
+    if isinstance(store, ShardedStore):
+        return store.gather(view, idx, mode)
+    return gather_normalize(store[view], mesh.shard_rows(idx), mode)
+
+
+def gather_obs(store, idx, cfg) -> torch.Tensor:
     """The encoder's normalized input (B, H, W, C) of the store rows
-    ``idx`` (a host index): the first view's frames, with the second
-    view's stacked on the channel axis when the config stacks both. Each
-    view is one gather kernel launch on its own store; "image_net" mode
-    repeats the 3-channel statistics, so the two halves are the 6-channel
-    normalize."""
-    obs = gather_normalize(store["frames"], idx, cfg.normalize_mode)
+    ``idx`` (a host index; in a process group, this rank's rows of it):
+    the first view's frames, with the second view's stacked on the channel
+    axis when the config stacks both. Each view is one gather of its own
+    store; "image_net" mode repeats the 3-channel statistics, so the two
+    halves are the 6-channel normalize."""
+    obs = gather_view(store, "frames", idx, cfg.normalize_mode)
     if not cfg.stack_views:
         return obs
-    return torch.cat([obs, gather_normalize(store["frames_2"], idx,
-                                            cfg.normalize_mode)], dim=-1)
+    return torch.cat([obs, gather_view(store, "frames_2", idx,
+                                       cfg.normalize_mode)], dim=-1)

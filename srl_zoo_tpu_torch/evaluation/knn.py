@@ -6,8 +6,9 @@ For each (sampled) query, take its k nearest neighbours in the LEARNED
 state space and average the squared error between their ground-truth
 states and the query's. Low = the learned space keeps ground-truth
 neighbourhoods. The neighbour search is the fused distance + top-k kernel
-(ops/knn_topk.py); the reference set sharded over several GPUs waits for
-the multi-GPU slice.
+(ops/knn_topk.py); in a process group of more than one rank the
+reference set is split over the ranks (``knn_topk_sharded``), as JAX's
+single-host multi-chip route splits it over its mesh.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from srl_zoo_tpu_torch.ops.knn_topk import knn_topk
+from srl_zoo_tpu_torch.ops.knn_topk import knn_topk_sharded
 from srl_zoo_tpu_torch.utils.device import resolve_device, use_strict_float32
 
 
@@ -69,7 +70,9 @@ def knn_mse(learned_states: np.ndarray, ground_truth_states: np.ndarray,
     queries = sample_queries(n, n_samples, seed)
     refs = centre(torch.from_numpy(learned).to(device))
     q_all = torch.from_numpy(queries).to(device)
-    idx = knn_topk(refs.index_select(0, q_all), refs, k + 1).cpu().numpy()
+    # one rank (or too few states a rank) takes the plain kernel call
+    idx = knn_topk_sharded(refs.index_select(0, q_all), refs,
+                           k + 1)[1].cpu().numpy()
     score, neighbor_idx = score_neighbors(idx, queries, gt, k)
     return score, queries, neighbor_idx
 

@@ -13,6 +13,11 @@ order. The CLI picks the store as training does (``--device-cache`` of the
 run's config) and writes ``states_rewards.npz``, the hand-off artifact
 for downstream RL.
 
+In a process group (parallel/mesh.py) each rank encodes its rows of every
+export batch of the store (a whole or sharded store, which the ranks then
+read in step) and the states are gathered to every rank, as JAX's export
+shards its batches over the mesh and gathers them across processes.
+
     python -m srl_zoo_tpu_torch.evaluation.predict_dataset \\
         --log-folder logs/<run> [--data-folder data/<ds>] [-n N]
 """
@@ -20,7 +25,7 @@ for downstream RL.
 from __future__ import annotations
 
 import argparse
-from typing import Dict, Optional
+from typing import Optional
 
 import numpy as np
 import torch
@@ -31,30 +36,36 @@ from srl_zoo_tpu_torch.data.schema import (Dataset, load_dataset,
                                            save_states_rewards)
 from srl_zoo_tpu_torch.data.transfer import stream_batches
 from srl_zoo_tpu_torch.inference import StateEncoder
+from srl_zoo_tpu_torch.ops.sharded_store import ShardedStore
+from srl_zoo_tpu_torch.parallel import mesh
 from srl_zoo_tpu_torch.training.train_step import normalize_streamed
 
 
 BATCH = 256  # rows per export batch
 
 
-def predict_states(encoder: StateEncoder, store: Dict[str, torch.Tensor],
+def predict_states(encoder: StateEncoder, store,
                    indices: Optional[np.ndarray] = None) -> np.ndarray:
     """(len(indices), state_dim) float32 states of rows of the resident
     store (data/device_cache.py; all rows when ``indices`` is None)."""
-    frames = store["frames"]
-    if frames.device != encoder.device:
-        raise ValueError(f"frame store on {frames.device}, encoder on "
+    sharded = isinstance(store, ShardedStore)
+    device = store.device if sharded else store["frames"].device
+    if device != encoder.device:
+        raise ValueError(f"frame store on {device}, encoder on "
                          f"{encoder.device}")
     if indices is None:
-        indices = np.arange(frames.shape[0])
+        indices = np.arange(store.rows if sharded
+                            else store["frames"].shape[0])
     # host index slices and states kept on the device until the end: the
     # batches queue without a synchronise between them
     idx = np.asarray(indices, np.int64)
     out = []
     with torch.inference_mode():
         for start in range(0, len(idx), BATCH):
-            x = gather_obs(store, idx[start:start + BATCH], encoder.cfg)
-            out.append(encoder.model.encode(x))
+            rows = idx[start:start + BATCH]
+            x = gather_obs(store, mesh.pad_to_world(rows), encoder.cfg)
+            out.append(mesh.all_gather_rows(
+                encoder.model.encode(x))[:len(rows)])
     if not out:
         return np.zeros((0, encoder.cfg.state_dim), np.float32)
     return torch.cat(out).cpu().numpy()

@@ -11,7 +11,7 @@ episode prior average over their valid pairs.
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import torch
 
@@ -40,23 +40,31 @@ def _safe_norm(x: torch.Tensor) -> torch.Tensor:
 
 
 def mse(a: torch.Tensor, b: torch.Tensor,
-        valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+        valid: Optional[torch.Tensor] = None,
+        rows: Optional[Callable] = None) -> torch.Tensor:
+    """Mean over the batch of each sample's mean squared error. ``rows``
+    maps the (B,) per-sample errors of a process's rows to the global
+    batch's before the mean (training/train_step.py in a process group)."""
     sq = (_f32(a) - _f32(b)).square()
-    return _batch_mean(sq.reshape(sq.shape[0], -1).mean(dim=1), valid)
+    per_sample = sq.reshape(sq.shape[0], -1).mean(dim=1)
+    return _batch_mean(per_sample if rows is None else rows(per_sample),
+                       valid)
 
 
 def autoencoder_loss(recon: torch.Tensor, target: torch.Tensor,
-                     valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     valid: Optional[torch.Tensor] = None,
+                     rows: Optional[Callable] = None) -> torch.Tensor:
     """Pixel MSE between the reconstruction and the clean normalized
     frame (reference: autoEncoderLoss)."""
-    return mse(recon, target, valid)
+    return mse(recon, target, valid, rows)
 
 
 def dae_loss(recon: torch.Tensor, clean_target: torch.Tensor,
-             valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+             valid: Optional[torch.Tensor] = None,
+             rows: Optional[Callable] = None) -> torch.Tensor:
     """Pixel MSE between the reconstruction of the corrupted frame and
     the clean frame (reference: daeLoss)."""
-    return mse(recon, clean_target, valid)
+    return mse(recon, clean_target, valid, rows)
 
 
 def kl_divergence(mu: torch.Tensor, logvar: torch.Tensor,
@@ -70,10 +78,12 @@ def kl_divergence(mu: torch.Tensor, logvar: torch.Tensor,
 
 def vae_loss(recon: torch.Tensor, target: torch.Tensor, mu: torch.Tensor,
              logvar: torch.Tensor, beta: float,
-             valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+             valid: Optional[torch.Tensor] = None,
+             rows: Optional[Callable] = None) -> torch.Tensor:
     """beta-VAE: pixel MSE + beta * KL on the VAE's slice (reference:
     vaeLoss)."""
-    return mse(recon, target, valid) + beta * kl_divergence(mu, logvar, valid)
+    return mse(recon, target, valid, rows) + beta * kl_divergence(
+        mu, logvar, valid)
 
 
 def robotic_priors_loss(state: torch.Tensor, next_state: torch.Tensor,

@@ -10,11 +10,17 @@ term, ``total``, ``_n_valid`` (the batch's valid-row count, by which the
 learner weights its epoch means) and, for the pair terms of the priors and
 the episode prior, ``_w/<term>`` (their pair counts, which weight those
 terms instead), all as 0-d tensors on the device.
+
+In a process group (training/train_step.py) every input but the
+reconstruction and its target is the global batch's, and ``rows`` joins
+the ranks' per-sample pixel errors into the global batch's before their
+mean: each term is then one sum over the global batch over its global
+count, the same value on every rank.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional
 
 import torch
 
@@ -30,7 +36,8 @@ def compute_total_loss(cfg: SRLConfig, outputs: Dict[str, torch.Tensor],
                        target_obs: torch.Tensor,
                        valid: Optional[torch.Tensor],
                        params: Iterable[torch.Tensor],
-                       batch: Optional[Dict[str, torch.Tensor]] = None):
+                       batch: Optional[Dict[str, torch.Tensor]] = None,
+                       rows: Optional[Callable] = None):
     """``outputs`` of SRLModules.forward, with the train step's
     ``disc_logits_d`` / ``disc_logits_e`` (episode prior) and
     ``feat_recon`` / ``feat_target`` (perceptual) beside them; the clean
@@ -38,7 +45,9 @@ def compute_total_loss(cfg: SRLConfig, outputs: Dict[str, torch.Tensor],
     of a padded eval batch (None = all rows count), the model's parameters
     and the batch's device tensors the losses read (``actions``,
     ``reward_classes``, ``rewards``, ``gt_states``, the priors' and the
-    episode prior's partners, masks and labels)."""
+    episode prior's partners, masks and labels). ``rows`` maps the (B,)
+    per-sample pixel errors of this process's rows to the global batch's
+    (the identity by default)."""
     weights = cfg.loss_dict
     slices = cfg.slices
     batch = batch or {}
@@ -54,14 +63,15 @@ def compute_total_loss(cfg: SRLConfig, outputs: Dict[str, torch.Tensor],
 
     if "autoencoder" in weights:
         add("autoencoder", F.autoencoder_loss(outputs["recon"], target_obs,
-                                              valid))
+                                              valid, rows))
     if "dae" in weights:
-        add("dae", F.dae_loss(outputs["recon"], target_obs, valid))
+        add("dae", F.dae_loss(outputs["recon"], target_obs, valid, rows))
     if "vae" in weights:
         sl = slices["vae"]
         add("vae", F.vae_loss(outputs["recon"], target_obs,
                               _sl(outputs["mu"], sl),
-                              _sl(outputs["logvar"], sl), cfg.beta, valid))
+                              _sl(outputs["logvar"], sl), cfg.beta, valid,
+                              rows))
     if "perceptual" in weights:
         add("perceptual", F.perceptual_similarity_loss(
             outputs["feat_recon"], outputs["feat_target"], valid))

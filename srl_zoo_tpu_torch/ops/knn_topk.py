@@ -20,6 +20,13 @@ wrapper sizes the split from the kernel's occupancy on the card
 layouts). ``"full"`` writes the (Q, N) matrix with the pairwise kernel
 (K4, ops/pairwise.py) and keeps each row's k smallest with a stable sort,
 ties to the lowest index as ``lax.top_k`` gives them.
+
+``knn_topk_sharded`` (port of ``srl_zoo_tpu/ops/knn_topk.py``
+``knn_topk_sharded``) splits the references over the ranks of a process
+group (parallel/mesh.py): each rank runs the kernel on its block, offsets
+its indices, and the ranks' (Q, k) candidate lists, all-gathered, are
+merged into the final k (``merge_topk``, which takes any list of blocks,
+so one card can run it over several).
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import functools
 import torch
 
 from srl_zoo_tpu_torch.ops import _build
+from srl_zoo_tpu_torch.parallel import mesh
 from srl_zoo_tpu_torch.ops.pairwise import (pairwise_sqdist,
                                             pairwise_sqdist_plain)
 
@@ -148,3 +156,50 @@ def knn_topk(q: torch.Tensor, refs: torch.Tensor, k: int,
              impl: str = "auto") -> torch.Tensor:
     """Indices (Q, k) int64 of each query's k nearest references."""
     return knn_topk_with_dist(q, refs, k, impl)[1]
+
+
+# a padding row of a reference block: never a nearest neighbour, and every
+# distance to it (about D x PAD_COORD^2) stays finite in float32
+PAD_COORD = 1e15
+
+
+def reference_block(refs: torch.Tensor, blocks: int, i: int
+                    ) -> tuple[torch.Tensor, int]:
+    """(block i of ``blocks`` contiguous blocks of ceil(N / blocks) rows of
+    ``refs``, padded with ``PAD_COORD`` rows; the global index of its first
+    row)."""
+    size = -(-refs.shape[0] // blocks)
+    block = refs[i * size:(i + 1) * size]
+    pad = size - block.shape[0]
+    if pad:
+        block = torch.cat([block, torch.full((pad, refs.shape[1]), PAD_COORD,
+                                             dtype=refs.dtype,
+                                             device=refs.device)])
+    return block, i * size
+
+
+def merge_topk(parts, k: int):
+    """The k smallest of per-block candidate lists ``parts`` [(dist (Q,
+    k_b), global idx (Q, k_b)), ...] in block order: (dist, idx) (Q, k),
+    ascending, ties to the earlier block (the lower index, the blocks being
+    contiguous and ascending)."""
+    d = torch.cat([p[0] for p in parts], dim=1)
+    i = torch.cat([p[1] for p in parts], dim=1)
+    d, order = torch.sort(d, dim=1, stable=True)
+    return d[:, :k], torch.gather(i, 1, order[:, :k])
+
+
+def knn_topk_sharded(q: torch.Tensor, refs: torch.Tensor, k: int):
+    """(dist, idx) (Q, k) of ``knn_topk_with_dist(q, refs, k)``, with the
+    references split over the ranks: every rank passes the same ``q`` and
+    ``refs``, runs the kernel on its block, and the ranks' candidates are
+    all-gathered and merged. With one rank, or blocks of fewer than k
+    rows, it is the plain call."""
+    w = mesh.world()
+    if w == 1 or refs.shape[0] // w < k:
+        return knn_topk_with_dist(q, refs, k)
+    block, start = reference_block(refs, w, mesh.rank())
+    d, i = knn_topk_with_dist(q, block, k)
+    ds = mesh.all_gather_rows(d[None])
+    is_ = mesh.all_gather_rows((i + start)[None])
+    return merge_topk(list(zip(ds, is_)), k)

@@ -36,9 +36,20 @@ force one mode. Streamed batches are decoded from the JPEGs where the
 folder has no ``frames.npy`` (the images are then taken at 224 x 224) on
 ``--num-cpu`` threads, and with ``--stream-overlap`` each batch's copy to
 the device overlaps the step before it. ``--balanced-sampling`` draws
-every reward class equally often. Flags of features the port does not
-run yet (``--device-cache sharded``, ``--num-processes``, ``--profile``)
-raise NotImplementedError naming their ROADMAP.md item.
+every reward class equally often. ``--profile`` writes a torch.profiler
+trace of the first epoch's training into ``<log>/profile`` (summary:
+``python -m srl_zoo_tpu_torch.utils.profiling --log-folder <log>``).
+
+Data parallelism: N processes on one host, one per GPU, each run with
+``--num-processes N --process-id i --coordinator-address host:port``
+(rank 0 listens there; ``nccl`` on CUDA, ``gloo`` with ``--device
+cpu``), train one model on the global batch (parallel/mesh.py); the
+batch size must be divisible by N. Rank 0 writes the run folder, rank i
+its logs into ``<log>/.proc<i>``. ``--device-cache on`` or ``sharded``
+(the store split over the ranks, ops/sharded_store.py), or an ``auto``
+that finds the store fits one device; streaming and the hybrid store
+across processes raise NotImplementedError (ROADMAP.md A8b). A
+``--coordinator-address`` with one process starts a group of one.
 """
 
 from __future__ import annotations
@@ -50,13 +61,16 @@ import shutil
 import sys
 
 import numpy as np
+import torch
 
 from srl_zoo_tpu_torch.config import (SRLConfig, build_config,
                                       parse_loss_arguments)
+from srl_zoo_tpu_torch.data.device_cache import A8B
 from srl_zoo_tpu_torch.data.schema import load_dataset, save_states_rewards
 from srl_zoo_tpu_torch.evaluation.gtc import ground_truth_correlation
 from srl_zoo_tpu_torch.plotting.representation_plot import (
     LiveView, plot_correlation, plot_representation)
+from srl_zoo_tpu_torch.parallel import mesh
 from srl_zoo_tpu_torch.training.learner import SRL4robotics
 from srl_zoo_tpu_torch.utils.device import resolve_device
 from srl_zoo_tpu_torch.utils.misc import (createFolder, parseDataFolder,
@@ -141,17 +155,26 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def _check_cli_flags(args: argparse.Namespace) -> None:
-    """Flags the config does not record, for features not ported yet."""
-    checks = (
-        (args.profile, "--profile",
-         "ROADMAP.md queue A item 9 'Tooling' (torch.profiler tracing)"),
-        (args.num_processes > 1 or bool(args.coordinator_address),
-         "--num-processes / --coordinator-address",
-         "ROADMAP.md queue A item 8 'Multi-GPU'"),
-    )
-    for failed, what, item in checks:
-        if failed:
-            raise NotImplementedError(f"{what} is not ported yet: {item}")
+    """Refuse, before anything is written, the store modes that several
+    processes do not run yet."""
+    if args.num_processes > 1 and args.device_cache in ("off", "hybrid"):
+        raise NotImplementedError(f"--device-cache {args.device_cache} "
+                                  f"with --num-processes: {A8B}")
+
+
+def _process_group(args: argparse.Namespace, device: torch.device) -> bool:
+    """Join the process group the flags ask for (a CUDA rank takes GPU
+    ``process_id`` mod the GPU count unless ``--device`` names one);
+    whether one was started."""
+    if args.num_processes <= 1 and not args.coordinator_address:
+        return False
+    if device.type == "cuda" and torch.device(
+            args.device or "cuda").index is None:
+        device = torch.device(
+            "cuda", args.process_id % torch.cuda.device_count())
+    mesh.initialize_distributed(args.coordinator_address,
+                                args.num_processes, args.process_id, device)
+    return True
 
 
 def default_log_folder(dataset_name: str, model_type: str,
@@ -199,6 +222,17 @@ def main(argv=None) -> str:
     args = parse_args(argv)
     _check_cli_flags(args)
     device = resolve_device(args.device)  # no GPU: raise before any write
+    started = _process_group(args, device)
+    if started and device.type == "cuda":
+        device = resolve_device(None)  # the rank's GPU
+    try:
+        return _train(args, device)
+    finally:
+        if started:
+            mesh.shutdown()
+
+
+def _train(args: argparse.Namespace, device: torch.device) -> str:
     set_global_seeds(args.seed)
 
     dataset_name = parseDataFolder(args.data_folder)
@@ -229,34 +263,36 @@ def main(argv=None) -> str:
                        n_actions=dataset.n_actions,
                        n_reward_classes=dataset.n_reward_classes,
                        img_shape=img_shape)
-    cfg.check_trainable()
-    createFolder(log_folder, f"Log folder {log_folder} already exists")
-    cfg.save(log_folder)
+    # rank 0 writes the run folder; rank i its own copy of the run's
+    # records in <log>/.proc<i>
+    out = mesh.rank_folder(log_folder)
+    createFolder(out, f"Log folder {out} already exists")
+    cfg.save(out)
     printGreen(f"Training {cfg.model_type} with losses {dict(cfg.losses)} "
-               f"-> {log_folder}")
+               f"-> {out}")
 
     learner = SRL4robotics(cfg, log_folder=log_folder, device=device)
     epoch_callback, live_view = None, None
     if args.plot_every > 0:
         epoch_callback, live_view = _epoch_plots(
-            dataset, log_folder, args.plot_every, not args.no_display_plots)
+            dataset, out, args.plot_every, not args.no_display_plots)
     try:
         learner.learn(dataset, resume=args.resume,
                       checkpoint_every=args.checkpoint_every,
-                      epoch_callback=epoch_callback)
+                      epoch_callback=epoch_callback, profile=args.profile)
     finally:
         if live_view is not None:
             live_view.close()
 
     states = learner.predict_states(dataset)
-    save_states_rewards(log_folder, states, dataset.rewards)
+    save_states_rewards(out, states, dataset.rewards)
     printGreen(f"Saved states_rewards.npz ({states.shape})")
     plot_representation(states, dataset.rewards,
-                        os.path.join(log_folder, "states.png"))
+                        os.path.join(out, "states.png"))
     gtc, corr = ground_truth_correlation(states, dataset.ground_truth_states)
-    plot_correlation(corr, os.path.join(log_folder, "correlation.png"))
+    plot_correlation(corr, os.path.join(out, "correlation.png"))
     printGreen(f"GTC score: {gtc:.4f}")
-    with open(os.path.join(log_folder, "gtc.txt"), "w") as f:
+    with open(os.path.join(out, "gtc.txt"), "w") as f:
         f.write(f"{gtc:.6f}\n")
     return log_folder
 

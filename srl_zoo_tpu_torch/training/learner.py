@@ -30,6 +30,19 @@ the model (``load_frozen_dae``), for the perceptual loss. A
 ``--losses random`` run trains nothing: it saves its initial model and an
 empty loss history. ``predict_states`` encodes a dataset, or rows of it,
 through ``evaluation/predict_dataset.py``.
+
+With ``profile`` a ``torch.profiler`` trace of the first epoch's training
+(epoch 0, or a resumed run's first) is written into ``<log>/profile``
+(``utils/profiling.py`` summarizes it): CPU activity, and CUDA activity
+on a CUDA device.
+
+In a process group (parallel/mesh.py) every rank runs this loop on the
+same global batches, each computing its rows of them (training/
+train_step.py), and the losses, metrics and parameters are the same on
+every rank. Rank 0 owns the run folder: it alone writes the model and the
+resume checkpoints, which ``resume`` reads on every rank; rank i writes
+its metrics (and its trace) into ``<log>/.proc<i>``. The exported states
+are gathered to every rank.
 """
 
 from __future__ import annotations
@@ -50,6 +63,7 @@ from srl_zoo_tpu_torch.data.transfer import stream_batches
 from srl_zoo_tpu_torch.evaluation import predict_dataset
 from srl_zoo_tpu_torch.inference import StateEncoder
 from srl_zoo_tpu_torch.models.torch_port import load_ported_resnet18
+from srl_zoo_tpu_torch.parallel import mesh
 from srl_zoo_tpu_torch.losses.registry import recompose_epoch_means
 from srl_zoo_tpu_torch.training.metrics import MetricsLogger
 from srl_zoo_tpu_torch.training.state import make_model, make_optimizer
@@ -108,7 +122,7 @@ class SRL4robotics:
 
     def __init__(self, cfg: SRLConfig, log_folder: Optional[str] = None,
                  device=None):
-        cfg.check_trainable()
+        mesh.check_batch_size(cfg.batch_size)
         self.cfg = cfg
         self.log_folder = log_folder or cfg.log_folder or "logs/default"
         self.device = resolve_device(device)
@@ -244,16 +258,38 @@ class SRL4robotics:
         return stream_batches(loader, self.device, self.cfg.stream_overlap)
 
     # ---- training ----------------------------------------------------------
+    def _start_profile(self):
+        """A running profiler of the CPU (and the CUDA device)."""
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        prof = profile(activities=acts)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof, epoch: int) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        out = os.path.join(mesh.rank_folder(self.log_folder), "profile")
+        os.makedirs(out, exist_ok=True)
+        path = os.path.join(out, f"epoch_{epoch}.pt.trace.json")
+        prof.export_chrome_trace(path)
+        printGreen(f"Profile of epoch {epoch + 1}'s training -> {path}")
+
     def learn(self, dataset: Dataset, resume: bool = False,
               checkpoint_every: int = 1,
-              epoch_callback: Optional[Callable] = None
-              ) -> Dict[str, float]:
+              epoch_callback: Optional[Callable] = None,
+              profile: bool = False) -> Dict[str, float]:
         """Train on the dataset's transitions; returns the final
         validation metrics. ``resume`` continues from the run folder's
         resume checkpoint, if there is one. ``epoch_callback(learner,
         epoch, train_metrics, val_metrics)`` runs after each epoch's
-        checkpoints are queued."""
+        checkpoints are queued. ``profile`` traces the first epoch's
+        training."""
         cfg = self.cfg
+        owner = mesh.rank() == 0
         if cfg.use_supervised:
             sup_dim = cfg.slices["supervised"][1]
             gt_dim = dataset.ground_truth_states.shape[1]
@@ -265,10 +301,11 @@ class SRL4robotics:
         train_idx, val_idx = split_indices(dataset, cfg)
         printGreen(f"{len(train_idx)} training / {len(val_idx)} validation "
                    f"samples, batch size {cfg.batch_size}")
-        logger = MetricsLogger(self.log_folder)
+        logger = MetricsLogger(mesh.rank_folder(self.log_folder))
         if cfg.only_random_features:
             printYellow("random features only: skipping training")
-            ckpt.save_srl_model(self.log_folder, self.model)
+            if owner:
+                ckpt.save_srl_model(self.log_folder, self.model)
             logger.save_history()
             logger.close()
             return {"total": 0.0}
@@ -315,9 +352,13 @@ class SRL4robotics:
         best = ckpt.snapshot(self.model.state_dict())
         improved = False
         val_metrics: Dict[str, float] = {}
-        writer = ckpt.AsyncCheckpointer(self.log_folder, self.device)
+        writer = ckpt.AsyncCheckpointer(self.log_folder, self.device) \
+            if owner else None
+        prof = None
         try:
             for epoch in range(start_epoch, cfg.epochs):
+                if profile and epoch == start_epoch:
+                    prof = self._start_profile()
                 t_epoch = time.time()
                 if rotating:
                     hot_store.begin_epoch()
@@ -339,6 +380,9 @@ class SRL4robotics:
                                n_images - n0)
                 train_metrics = mean_metrics(acc, cfg)
                 ips = n_images / max(time.time() - t_epoch, 1e-9)
+                if prof is not None:
+                    self._stop_profile(prof, epoch)
+                    prof = None
                 if rotating:
                     vphases = val_phases()
                 val_metrics = self._run_eval(vphases, epoch) if vphases \
@@ -362,14 +406,19 @@ class SRL4robotics:
                            f"({ips:.0f} img/s)")
                 if val_metrics["total"] < best_val:
                     best_val = val_metrics["total"]
-                    best = writer.save_model(self.model,
-                                             self.model.state_dict())
+                    best = writer.save_model(
+                        self.model, self.model.state_dict()) if owner \
+                        else ckpt.snapshot(self.model.state_dict())
                     improved = True
                 if (epoch + 1) % max(checkpoint_every, 1) == 0 \
                         or epoch == cfg.epochs - 1:
-                    writer.save_state(self.model, self.optimizer,
-                                      self.generator, step, epoch + 1,
-                                      best_val)
+                    if self.optimizer.micro_step:
+                        # a mid-cycle checkpoint saves every rank's gradients
+                        self.optimizer.average_gradients()
+                    if owner:
+                        writer.save_state(self.model, self.optimizer,
+                                          self.generator, step, epoch + 1,
+                                          best_val)
                 if epoch_callback is not None:
                     epoch_callback(self, epoch, train_metrics, val_metrics)
         except BaseException:
@@ -377,8 +426,11 @@ class SRL4robotics:
             # checkpoint is needed) and keep the loss history of the epochs
             # that finished; a failed flush is reported and the original
             # error raised
+            if prof is not None:
+                prof.stop()
             try:
-                writer.close()
+                if writer is not None:
+                    writer.close()
             except Exception as err:
                 printYellow(f"checkpoint flush failed during crash "
                             f"handling: {err!r}")
@@ -394,13 +446,14 @@ class SRL4robotics:
                          "diverged; the exported srl_model.pth holds the "
                          "INITIAL (untrained) weights. Check --lr/--losses.")
             self.model.load_state_dict(best)
-            if not improved:
+            if not improved and owner:
                 writer.save_model(self.model, best)
         else:
             # resumed without beating the pre-crash best: the exported
             # model stays, and the state export uses it
             self.model.load_state_dict(ckpt.read_state_dict(self.log_folder))
-        writer.close()  # flush the queued writes, the best model's too
+        if owner:
+            writer.close()  # flush the queued writes, the best model's too
         logger.save_history()
         logger.close()
         if not val_metrics:

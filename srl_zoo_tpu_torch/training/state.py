@@ -10,7 +10,9 @@ plus eps. With ``--episode-prior-optimizer separate`` the discriminator's
 parameters get an Adam of their own (optax's ``multi_transform``); Adam
 is elementwise, so the two modes give equal updates. With ``--grad-accum
 k`` the Adams step once every k micro-steps with the mean of their
-gradients (optax's ``MultiSteps``).
+gradients (optax's ``MultiSteps``). In a process group the gradients are
+averaged over the ranks before each Adam step (``mesh.average_gradients``;
+training/train_step.py says why), so every rank's Adams take one step.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 from srl_zoo_tpu_torch.config import SRLConfig
 from srl_zoo_tpu_torch.models.init import init_like_flax_
 from srl_zoo_tpu_torch.models.srl_modules import SRLModules
+from srl_zoo_tpu_torch.parallel import mesh
 
 
 def make_model(cfg: SRLConfig, device: torch.device) -> SRLModules:
@@ -67,11 +70,19 @@ class AccumulatingAdam:
         self.micro_step += 1
         if self.micro_step < self.every:
             return False
+        self.average_gradients()
         for adam in self.adams:
             adam.step()
             adam.zero_grad(set_to_none=True)
         self.micro_step = 0
         return True
+
+    def average_gradients(self) -> None:
+        """The accumulated gradients averaged over the ranks of a process
+        group (nothing without one). Every rank calls it before a resume
+        checkpoint taken mid-cycle, so that the saved gradients are every
+        rank's; averaging again at the step keeps them right."""
+        mesh.average_gradients(self.params)
 
     def state_dict(self) -> Dict:
         """Each Adam's state, the micro-step count and, between two

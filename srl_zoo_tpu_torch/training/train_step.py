@@ -39,6 +39,22 @@ kept out of the model) on the reconstruction, which the gradient flows
 through, and on the clean frames. The JAX package pads an epoch's step
 axis to a bucket to reuse compiled programs and skips the padded steps;
 here only the real steps run.
+
+In a process group (parallel/mesh.py) every rank reads the same global
+batch and computes its block of B/world rows of it: the store's gather
+(K2, or the sharded store's reduce-scatter and K2) gives this rank's rows,
+and the random draws are the global batch's, of which each rank keeps its
+rows, so that they are the single process's draws. BatchNorm takes the
+global batch's statistics (models/batchnorm.py). The model's state-sized
+outputs are then gathered into the global batch with a gradient
+(``mesh.gather_rows``), as are the per-sample pixel errors, so that every
+rank computes the same global loss, whose pairs may join rows of two
+ranks. The gather's backward sums the ranks' gradients, so each rank's
+parameter gradients are world x its share, and the parameters that the
+global part reads directly (the regularizers, the episode prior's
+discriminator) get the whole gradient on every rank: the optimizer's mean
+over the ranks (``mesh.average_gradients``) is then the single process's
+gradient.
 """
 
 from __future__ import annotations
@@ -49,10 +65,12 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
-from srl_zoo_tpu_torch.data.device_cache import gather_obs
+from srl_zoo_tpu_torch.data.device_cache import (gather_obs, gather_view,
+                                                  store_rows)
 from srl_zoo_tpu_torch.losses.registry import compute_total_loss
 from srl_zoo_tpu_torch.models.srl_modules import SRLModules, slice_state
 from srl_zoo_tpu_torch.ops.gather_norm import gather_normalize
+from srl_zoo_tpu_torch.parallel import mesh
 from srl_zoo_tpu_torch.ops.preproc import (draw_gaussian_noise,
                                            draw_occlusion, gaussian_noise,
                                            occlude)
@@ -130,19 +148,19 @@ def _images(model: SRLModules, store: Optional[Dict[str, torch.Tensor]],
         return (norm("obs"), norm("next_obs") if cfg.needs_next_obs else None,
                 norm("pos_obs") if cfg.use_triplet else None,
                 norm("neg_obs") if cfg.use_triplet else None)
-    frames = store["frames"]
     idx = np.asarray(batch.get("cache_slots", batch["indices"]), np.int64)
     obs = gather_obs(store, idx, cfg)
     next_obs = pos_obs = neg_obs = None
     if cfg.needs_next_obs:
         nxt = batch.get("next_cache_slots")
-        nxt = np.minimum(idx + 1, frames.shape[0] - 1) if nxt is None \
+        nxt = np.minimum(idx + 1, store_rows(store) - 1) if nxt is None \
             else np.asarray(nxt, np.int64)
         next_obs = gather_obs(store, nxt, cfg)
     if cfg.use_triplet:
-        pos_obs = gather_normalize(store["frames_2"], idx, mode)
+        pos_obs = gather_view(store, "frames_2", idx, mode)
         neg = batch.get("neg_cache_slots", batch.get("neg_indices"))
-        neg_obs = gather_normalize(frames, np.asarray(neg, np.int64), mode)
+        neg_obs = gather_view(store, "frames", np.asarray(neg, np.int64),
+                              mode)
     return obs, next_obs, pos_obs, neg_obs
 
 
@@ -154,7 +172,9 @@ def _inputs(model: SRLModules, store: Optional[Dict[str, torch.Tensor]],
     ``neg_obs`` (None without the triplet loss), ``valid``, ``batch`` (the
     metadata tensors), ``noise`` (the VAE's eps in train mode) and
     ``corruption`` (the DAE's draw: from ``generator`` in train mode, the
-    given one in eval mode)."""
+    given one in eval mode). In a process group the frames and the noise
+    are this rank's rows, the metadata and the corruption the global
+    batch's."""
     cfg = model.cfg
     # host indices and metadata go up pinned and non-blocking: building a
     # step's inputs waits for nothing on the device
@@ -162,11 +182,11 @@ def _inputs(model: SRLModules, store: Optional[Dict[str, torch.Tensor]],
     dev = obs.device
     tensors = {k: upload(np.asarray(batch[k]), dev, dt)
                for k, dt in _metadata(cfg).items()}
-    b = obs.shape[0]
+    b = len(batch["valid"])
     noise = None
     if cfg.use_vae and model.training:
-        noise = {name: torch.randn((b, cfg.state_dim), generator=generator,
-                                   device=dev)
+        noise = {name: mesh.shard_rows(torch.randn(
+                     (b, cfg.state_dim), generator=generator, device=dev))
                  for name in ("state", "next_state")[:1 + cfg.needs_next_obs]}
     if cfg.use_dae and model.training:
         corruption = draw_corruption(cfg, generator, b, dev)
@@ -176,12 +196,23 @@ def _inputs(model: SRLModules, store: Optional[Dict[str, torch.Tensor]],
             "batch": tensors, "noise": noise, "corruption": corruption}
 
 
-def _extras(model: SRLModules, outputs: Dict[str, torch.Tensor],
-            batch: Dict[str, torch.Tensor], target: torch.Tensor,
-            frozen_dae: Optional[SRLModules]) -> None:
-    """The outputs that need more than the model's forward, added to
-    ``outputs``: the episode prior's two discriminator applies and the
-    perceptual loss's frozen-DAE features."""
+def _perceptual(model: SRLModules, outputs: Dict[str, torch.Tensor],
+                target: torch.Tensor,
+                frozen_dae: Optional[SRLModules]) -> None:
+    """The perceptual loss's frozen-DAE features of the reconstruction and
+    of the clean frames, added to ``outputs``."""
+    if "perceptual" in model.cfg.loss_names:
+        if frozen_dae is None:
+            raise ValueError("perceptual loss requires a frozen DAE "
+                             "(--path-to-dae)")
+        outputs["feat_recon"] = frozen_dae.encode(outputs["recon"])
+        outputs["feat_target"] = frozen_dae.encode(target)
+
+
+def _episode_prior(model: SRLModules, outputs: Dict[str, torch.Tensor],
+                   batch: Dict[str, torch.Tensor]) -> None:
+    """The episode prior's two discriminator applies on the batch's state
+    pairs, added to ``outputs``."""
     cfg = model.cfg
     if cfg.use_episode_prior:
         s1 = slice_state(outputs["state"], cfg.slices["episode-prior"])
@@ -194,32 +225,52 @@ def _extras(model: SRLModules, outputs: Dict[str, torch.Tensor],
                   for k, v in model.discriminator.named_parameters()}
         outputs["disc_logits_e"] = functional_call(model.discriminator,
                                                    frozen, (s1, s2))
-    if "perceptual" in cfg.loss_names:
-        if frozen_dae is None:
-            raise ValueError("perceptual loss requires a frozen DAE "
-                             "(--path-to-dae)")
-        outputs["feat_recon"] = frozen_dae.encode(outputs["recon"])
-        outputs["feat_target"] = frozen_dae.encode(target)
+
+
+def _local(corruption):
+    """This rank's rows of a DAE draw of the global batch (the gaussian
+    noise, or the occlusion's tuple of corners)."""
+    if isinstance(corruption, tuple):
+        return tuple(mesh.shard_rows(t) for t in corruption)
+    return mesh.shard_rows(corruption)
 
 
 def _loss(model: SRLModules, inputs: Dict,
           frozen_dae: Optional[SRLModules] = None):
     """(total, metrics) of ``_inputs``: the encoder reads the frames the
-    DAE corrupts, the reconstruction losses hold the clean ones."""
+    DAE corrupts, the reconstruction losses hold the clean ones. In a
+    process group the state-sized outputs and the pixel errors are
+    gathered into the global batch first."""
     cfg = model.cfg
     enc_obs = inputs["obs"]
     if cfg.use_dae:
         if inputs["corruption"] is None:
             raise ValueError("a DAE step needs its corruption (eval: the "
                              "validation draw)")
-        enc_obs = corrupt(cfg, enc_obs, inputs["corruption"])
+        enc_obs = corrupt(cfg, enc_obs, _local(inputs["corruption"]))
+    batch = inputs["batch"]
+    actions = batch.get("actions")
     outputs = model(enc_obs, inputs["next_obs"],
-                    inputs["batch"].get("actions"), inputs["noise"],
-                    inputs["pos_obs"], inputs["neg_obs"])
-    _extras(model, outputs, inputs["batch"], inputs["obs"], frozen_dae)
+                    None if actions is None else mesh.shard_rows(actions),
+                    inputs["noise"], inputs["pos_obs"], inputs["neg_obs"])
+    _perceptual(model, outputs, inputs["obs"], frozen_dae)
+    if mesh.active():
+        # one gather a tensor (a model without the VAE returns its state
+        # as mu too)
+        pairs = []
+        for k, v in list(outputs.items()):
+            if k == "recon":
+                continue
+            g = next((g for t, g in pairs if t is v), None)
+            if g is None:
+                g = mesh.gather_rows(v)
+                pairs.append((v, g))
+            outputs[k] = g
+    _episode_prior(model, outputs, batch)
     return compute_total_loss(cfg, outputs, inputs["obs"],
-                              inputs["valid"], model.parameters(),
-                              inputs["batch"])
+                              inputs["valid"], model.parameters(), batch,
+                              rows=mesh.gather_rows if mesh.active()
+                              else None)
 
 
 def train_step(model: SRLModules, optimizer,

@@ -558,25 +558,16 @@ def test_pipeline_bad_grid_value_exits_before_training(pipe_dataset,
     assert not os.path.exists(tmp_path / "logs")
 
 
-@pytest.mark.parametrize("flags,match", [
-    (["--device-cache", "sharded"], "queue A item 8"),
-])
-def test_pipeline_refuses_through_the_train_cli(pipe_dataset, tmp_path,
-                                                monkeypatch, flags, match):
-    with pytest.raises(NotImplementedError, match=match):
-        _pipeline(["--data-folder", pipe_dataset, *PIPE_FLAGS, *flags],
-                  tmp_path, monkeypatch)
-    assert os.listdir(tmp_path / "logs" / "synth") == []
-
-
-@pytest.mark.parametrize("mode", ["off", "hybrid"])
+@pytest.mark.parametrize("mode", ["off", "hybrid", "sharded"])
 def test_pipeline_passes_the_device_cache_to_its_cells(pipe_dataset,
                                                        tmp_path, monkeypatch,
                                                        mode):
-    """``--device-cache off`` (streaming) and ``hybrid`` (a store of 24
-    rows) reach each cell's train CLI, which trains and is scored."""
-    monkeypatch.setenv("SRL_ZOO_CACHE_BUDGET_MB",
-                       str(24.5 * 32 * 32 * 3 / 2**20))
+    """``--device-cache off`` (streaming), ``hybrid`` (a store of 24
+    rows) and ``sharded`` (one rank's block, all rows) reach each cell's
+    train CLI, which trains and is scored."""
+    if mode != "sharded":
+        monkeypatch.setenv("SRL_ZOO_CACHE_BUDGET_MB",
+                           str(24.5 * 32 * 32 * 3 / 2**20))
     results = _pipeline(["--data-folder", pipe_dataset, *PIPE_FLAGS,
                          "--no-grids", "--device-cache", mode], tmp_path,
                         monkeypatch)

@@ -314,6 +314,9 @@ def test_port_imports_neither_jax_nor_the_jax_package(port_run,
         "    importlib.import_module(name)\n"
         "assert 'srl_zoo_tpu_torch.pipeline' in names, names\n"
         "assert 'srl_zoo_tpu_torch.plotting.raster' in names, names\n"
+        "for new in ('data.synthetic', 'parallel.mesh', 'ops.sharded_store',\n"
+        "            'utils.doctor', 'utils.profiling'):\n"
+        "    assert 'srl_zoo_tpu_torch.' + new in names, names\n"
         "from srl_zoo_tpu_torch.evaluation.knn import knn_mse\n"
         "from srl_zoo_tpu_torch.inference import StateEncoder\n"
         f"run = {port_run!r}\n"

@@ -1055,12 +1055,13 @@ def test_exp_config_round_trips_between_the_packages(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--num-processes", "2"], "item 8"),
-    (["--device-cache", "sharded"], "item 8"),
-    (["--profile"], "item 9"),
+    (["--num-processes", "2", "--device-cache", "off"], "item 8"),
+    (["--num-processes", "2", "--device-cache", "hybrid"], "item 8"),
 ])
 def test_unported_flags_name_their_roadmap_item(synthetic_dataset, tmp_path,
                                                 flags, item):
+    """Streaming and the hybrid store across processes (ROADMAP.md A8b)
+    are refused before a process group starts or anything is written."""
     from srl_zoo_tpu_torch.train import main
     argv = ["--data-folder", synthetic_dataset.data_folder, "--state-dim",
             str(STATE_DIM), "--log-folder", str(tmp_path / "run"),
