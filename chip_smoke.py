@@ -187,7 +187,21 @@ prints its wall time:
    deterministic algorithms; each run's collectives and launches counted
    from zero (the sharded run must launch K2, K1f and K1b and gather by
    reduce-scatter), and the two runs' losses and exported states must be
-   equal bit for bit. Then an account of what the group costs config 1's
+   equal bit for bit. Then config 1 at 224 px, batch 32, 2 epochs, in
+   the group and again without one, streamed (``--device-cache off``),
+   streamed with ``--stream-overlap`` and through a rotating hybrid store
+   of 2,048 of the 4,096 rows (``SRL_ZOO_CACHE_BUDGET_MB``), each scored
+   by KNN-MSE: K1f, K1b, K2 and K3 must launch in each run (K2 on
+   streamed batches only, the hybrid run's also by slot); the streamed
+   runs in the group must equal the whole store's bit for bit; the
+   hybrid run in the group must adopt through uint8 all-gathers
+   (``all_gather_frames``), hold the store invariant after its 2 epochs
+   as the lone run does, end on the lone run's slot map, and keep its
+   training epoch means within 2e-2 of the lone run's (the deviation is
+   printed by epoch, beside the streamed pair's and beside the lone
+   runs' own spread when their initial weights are perturbed by 1e-6);
+   images/s by epoch and by phase for every run. Then an
+   account of what the group costs config 1's
    step at batch 32 (wall ms, best of three windows of 30 steps): in the
    group, with ``nn.BatchNorm2d``'s own forward in place of the global
    BatchNorm, with the NCCL calls skipped, and without a group; a
@@ -245,6 +259,7 @@ a square root.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import os
@@ -2411,23 +2426,24 @@ def run_data_config(data_folder: str, run_dir: str, counters, name: str,
     return launches, k2, learners[0]
 
 
-def check_hybrid_store(learner, dataset) -> None:
-    """The store invariant after training: every resident row's slot
-    holds that row's bytes, both views (compared in chunks on the card);
-    and the hybrid export (the CLI's states_rewards.npz, through the
-    rotated window and streaming) against an export from the whole store
-    (1e-5 of the largest |state|)."""
+def check_hybrid_store(learner, dataset,
+                       epochs: int = DATA_EPOCHS_HYBRID) -> None:
+    """The store invariant after ``epochs`` epochs of training: every
+    resident row's slot holds that row's bytes, each view the store holds
+    (compared in chunks on the card); and the hybrid export (the CLI's
+    states_rewards.npz, through the rotated window and streaming) against
+    an export from the whole store (1e-5 of the largest |state|)."""
     import torch
     from srl_zoo_tpu_torch.data.device_cache import build_cache
     from srl_zoo_tpu_torch.evaluation.predict_dataset import predict_states
     from srl_zoo_tpu_torch.inference import StateEncoder
     hot = learner._hot_store
-    if hot is None or not hot.rotate or hot.epoch != DATA_EPOCHS_HYBRID:
-        raise AssertionError(f"no rotating hybrid store after "
-                             f"{DATA_EPOCHS_HYBRID} epochs: {hot}")
+    if hot is None or not hot.rotate or hot.epoch != epochs:
+        raise AssertionError(f"no rotating hybrid store after {epochs} "
+                             f"epochs: {hot}")
     resident = np.nonzero(hot.slot_of >= 0)[0]
     dev = hot.cache["frames"].device
-    for name in ("frames", "frames_2"):
+    for name in hot.cache:
         src = getattr(dataset, name)
         for s in range(0, len(resident), 512):
             r = resident[s:s + 512]
@@ -2443,7 +2459,8 @@ def check_hybrid_store(learner, dataset) -> None:
     cached = predict_states(encoder, build_cache(dataset, dev))
     err = float(np.abs(states - cached).max() / np.abs(cached).max())
     log(f"hybrid store after {hot.epoch} epochs: {hot.hot_n}/{hot.n} rows "
-        f"resident, invariant holds for both views; {hot.adopted_rows} rows "
+        f"resident, invariant holds for {len(hot.cache)} view(s); "
+        f"{hot.adopted_rows} rows "
         f"adopted from streamed batches, {hot.swept_rows} swept from the "
         f"memmap; hybrid export vs whole-store export max err {err:.3g} of "
         "the largest |state|")
@@ -2621,20 +2638,129 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+# phase 4c's runs of config 1 on the streamed and hybrid paths, in the
+# group and without one: name, flags, environment (the hybrid store holds
+# HYBRID_ROWS of the TRAIN_FRAMES rows, about half)
+GROUP_STREAMS = (
+    ("off", ["--device-cache", "off"], {}),
+    ("off --stream-overlap", ["--device-cache", "off", "--stream-overlap"],
+     {}),
+    ("hybrid", ["--device-cache", "hybrid"],
+     {"SRL_ZOO_CACHE_BUDGET_MB": str((HYBRID_ROWS + 0.5) * np.prod(IMG)
+                                     / 2**20)}),
+)
+GROUP_EPOCHS = 2
+# the hybrid run in the group against the same run alone: the largest
+# relative difference of a training epoch mean allowed (the CPU tests'
+# tolerance for a group against one process; the measured one is printed
+# beside the spread of the lone runs under SPREAD_EPS)
+GROUP_HYBRID_RTOL = 2e-2
+SPREAD_EPS = 1e-6  # relative perturbation of the initial weights
+
+
+@contextlib.contextmanager
+def perturbed_init(eps: float):
+    """The learner's models built with every initial weight scaled by
+    1 + eps * N(0, 1) (a draw seeded with SEED): a run's spread under
+    rounding-sized changes."""
+    import torch
+    from srl_zoo_tpu_torch.training import learner as learner_mod
+    real = learner_mod.make_model
+
+    def make_model(cfg, device):
+        model = real(cfg, device)
+        g = torch.Generator().manual_seed(SEED)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.mul_(1 + eps * torch.randn(p.shape, generator=g).to(
+                    p.device))
+        return model
+    learner_mod.make_model = make_model
+    try:
+        yield
+    finally:
+        learner_mod.make_model = real
+
+
+def run_streams(data_folder: str, work: str, counters, where: str) -> dict:
+    """Each run of GROUP_STREAMS through the train CLI (``run_data_config``:
+    launches counted from zero, K2 by route, images/s by epoch and by
+    phase), then KNN-MSE of its exported states, whose K3 launches count
+    with the run's. Every run must launch K1f, K1b, K2 and K3; a streamed
+    run K2 on streamed batches only, a hybrid run K2 on streamed and slot
+    batches. Returns {name: (run folder, launches, K2 by route, learner,
+    collectives)}."""
+    from srl_zoo_tpu_torch.data.schema import load_dataset
+    from srl_zoo_tpu_torch.evaluation.knn import knn_mse
+    from srl_zoo_tpu_torch.parallel import mesh
+    gt = load_dataset(data_folder).ground_truth_states
+    out = {}
+    for i, (name, flags, env) in enumerate(GROUP_STREAMS):
+        run = f"{work}/{where.replace(' ', '_')}_{i}"
+        mesh.zero_counts()
+        launches, k2, learner = run_data_config(
+            data_folder, run, counters, f"{where}, config 1 {name}",
+            ["autoencoder"], GROUP_EPOCHS, flags, env=env)
+        coll = dict(mesh.counts)
+        states = np.load(os.path.join(run, "states_rewards.npz"))["states"]
+        score, _, _ = knn_mse(states, gt, k=5, n_samples=KNN_QUERIES,
+                              seed=SEED)
+        launches["knn_topk"] = counters["knn_topk"].launches
+        hybrid = name == "hybrid"
+        log(f"{where}, config 1 {name}: KNN-MSE (k=5) {score:.6f}; "
+            f"launches with the KNN-MSE {launches}; collectives {coll}")
+        if not launches["knn_topk"] or not k2["streamed"] or \
+                bool(k2["slot"]) != hybrid or k2["index"]:
+            raise AssertionError(f"{where}, {name}: launches {launches}, "
+                                 f"K2 by batch {k2}")
+        out[name] = (run, launches, k2, learner, coll)
+    return out
+
+
+def equal_runs(a: str, b: str) -> str:
+    """'' where two run folders hold equal loss histories and exported
+    states, else what differs, with the largest difference."""
+    for name in ("loss_history.npz", "states_rewards.npz"):
+        x, y = np.load(os.path.join(a, name)), np.load(os.path.join(b, name))
+        for key in y.files:
+            if not np.array_equal(x[key], y[key]):
+                return (f"{name} {key} differs by up to "
+                        f"{float(np.abs(x[key] - y[key]).max()):.3g}")
+    return ""
+
+
+def train_deviation(a: str, b: str) -> list:
+    """By epoch, the largest relative difference between two run folders'
+    training epoch means, each loss term relative to its largest |mean|
+    in ``b``."""
+    x, y = (np.load(os.path.join(r, "loss_history.npz")) for r in (a, b))
+    keys = [k for k in y.files if k.startswith("train/")]
+    return [max(float(abs(x[k][e] - y[k][e]) / np.abs(y[k]).max())
+                for k in keys) for e in range(len(y[keys[0]]))]
+
+
 def run_process_group(data_folder: str, work: str, dev, counters) -> dict:
     """Phase 4c: a process group of world size 1 over nccl
     (``parallel/mesh.py``), in which config 1 trains through the train CLI
-    for 2 epochs with ``--device-cache sharded`` and then with the whole
-    store (``on``). Each run's collectives and launches are counted from
-    zero; the sharded run must launch K2, K1f and K1b and gather by
-    reduce-scatter, and both runs' losses and exported states must be
-    equal bit for bit. cuDNN runs its deterministic algorithms in both:
-    its default weight-gradient algorithms add in a varying order, and
-    two runs of one config then part in the fourth digit of the loss on
-    the H100. Then ``group_cost`` in the group and without it. Returns
-    the sharded run's launches."""
+    for 2 epochs with ``--device-cache sharded``, with the whole store
+    (``on``), then streamed (``off``, and with ``--stream-overlap``) and
+    through a rotating hybrid store of about half the rows
+    (``GROUP_STREAMS``); the three streamed and hybrid runs again without
+    a group, and once more without a group from initial weights perturbed
+    by SPREAD_EPS (the lone runs' spread under rounding-sized changes).
+    Each run's collectives and launches are counted from zero; the
+    sharded run must launch K2, K1f and K1b and gather by reduce-scatter; the sharded and the streamed runs' losses and exported
+    states must equal the whole store's bit for bit; the hybrid run in the
+    group must adopt through uint8 all-gathers, hold the store invariant
+    and keep its training means within GROUP_HYBRID_RTOL of the same run
+    alone. cuDNN runs its deterministic algorithms in every run: its
+    default weight-gradient algorithms add in a varying order, and two
+    runs of one config then part in the fourth digit of the loss on the
+    H100. Then ``group_cost`` in the group and without it. Returns the
+    launches summed over the sharded, streamed and hybrid runs."""
     import torch
     from srl_zoo_tpu_torch import train as train_cli
+    from srl_zoo_tpu_torch.data.schema import load_dataset
     from srl_zoo_tpu_torch.parallel import mesh
     mesh.initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0, dev)
     torch.backends.cudnn.deterministic = True
@@ -2648,14 +2774,15 @@ def run_process_group(data_folder: str, work: str, dev, counters) -> dict:
             run = train_cli.main([
                 "--data-folder", data_folder, "--losses", "autoencoder",
                 "--state-dim", str(STATE_DIM), "-bs", str(TRAIN_BATCH),
-                "--epochs", "2", "--device-cache", mode, "--log-folder",
-                f"{work}/{mode}"])
+                "--epochs", str(GROUP_EPOCHS), "--device-cache", mode,
+                "--log-folder", f"{work}/{mode}"])
             secs = time.perf_counter() - t0
             launches = read_counts(counters, f"process group, {mode}")
             results[mode] = (run, launches, dict(mesh.counts))
             log(f"world size 1 over {mesh.dist.get_backend()}, "
                 f"--device-cache {mode}: 2 epochs, export and GTC in "
                 f"{secs:.1f} s; collectives {mesh.counts}")
+        grouped = run_streams(data_folder, work, counters, "group")
         torch.backends.cudnn.deterministic = False
         cost = group_cost(timer, grouped=True)
     finally:
@@ -2665,21 +2792,60 @@ def run_process_group(data_folder: str, work: str, dev, counters) -> dict:
     log("config 1's train step at batch 32, wall ms (best of 3 windows of "
         f"{GROUP_STEPS}): " + "; ".join(f"{k} {v:.3f}"
                                         for k, v in cost.items()))
+    torch.backends.cudnn.deterministic = True
+    try:
+        alone = run_streams(data_folder, work, counters, "no group")
+        with perturbed_init(SPREAD_EPS):
+            spread = run_streams(data_folder, work, counters,
+                                 "no group perturbed")
+    finally:
+        torch.backends.cudnn.deterministic = False
     run, launches, coll = results["sharded"]
     if not (launches["gather_normalize"] and launches["relu_max_pool"]
             and launches["relu_max_pool_bwd"] and coll["reduce_scatter"]):
         raise AssertionError(f"sharded run: launches {launches}, "
                              f"collectives {coll}")
-    for name in ("loss_history.npz", "states_rewards.npz"):
-        a = np.load(os.path.join(run, name))
-        b = np.load(os.path.join(results["on"][0], name))
-        for key in a.files:
-            if not np.array_equal(a[key], b[key]):
-                raise AssertionError(f"sharded vs whole store: {name} "
-                                     f"{key} differs")
-    log("sharded store vs whole store at world size 1: losses and exported "
-        "states equal bit for bit")
-    return launches
+    on = results["on"][0]
+    for name, other in [("sharded store", run)] + [
+            (f"--device-cache {n}", grouped[n][0])
+            for n in ("off", "off --stream-overlap")]:
+        diff = equal_runs(other, on)
+        if diff:
+            raise AssertionError(f"{name} vs whole store in the group: "
+                                 f"{diff}")
+    log("sharded store, streamed and streamed with --stream-overlap vs the "
+        "whole store at world size 1: losses and exported states equal bit "
+        "for bit")
+    dataset = load_dataset(data_folder)
+    (g_run, _, _, g_learner, g_coll), (a_run, _, _, a_learner, _) = \
+        grouped["hybrid"], alone["hybrid"]
+    if not g_coll["all_gather_frames"]:
+        raise AssertionError(f"hybrid run in the group adopted no rows "
+                             f"through an all-gather: {g_coll}")
+    for learner in (g_learner, a_learner):
+        check_hybrid_store(learner, dataset, GROUP_EPOCHS)
+    if not np.array_equal(g_learner._hot_store.slot_of,
+                          a_learner._hot_store.slot_of):
+        raise AssertionError("hybrid run: the slot maps in and out of the "
+                             "group differ")
+    def by_epoch(runs, n):
+        return [float(f"{r:.3g}") for r in train_deviation(runs[n][0],
+                                                           alone[n][0])]
+    rel = by_epoch(grouped, "hybrid")
+    log(f"hybrid run in the group vs alone: {g_coll['all_gather_frames']} "
+        f"adoption all-gathers; training epoch means differ by {max(rel)} "
+        f"relative at most (limit {GROUP_HYBRID_RTOL}), by epoch {rel}; "
+        f"the streamed run in the group vs alone by epoch "
+        f"{by_epoch(grouped, 'off')}; alone with the initial weights "
+        f"perturbed by {SPREAD_EPS}: hybrid {by_epoch(spread, 'hybrid')}, "
+        f"streamed {by_epoch(spread, 'off')}")
+    if not max(rel) <= GROUP_HYBRID_RTOL:
+        raise AssertionError(f"hybrid run in the group vs alone: {rel}")
+    total = dict(launches)
+    for runs in (grouped, alone, spread):
+        for _, ran, _, _, _ in runs.values():
+            total = {k: total[k] + ran[k] for k in total}
+    return total
 
 
 GROUP_STEPS = 30  # train steps a timed window of phase 4c's account

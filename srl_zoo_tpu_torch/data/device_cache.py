@@ -19,11 +19,15 @@ hybrid). ``--device-cache`` picks the mode (``open_store``):
   (ops/sharded_store.py), each rank holding its block of rows; its budget
   is the sum of the ranks' (one rank without a group holds all rows).
 
-In a process group of more than one rank, ``on``, ``sharded`` and an
-``auto`` that finds the whole store fits are taken; streaming and the
-hybrid store (``off``, ``hybrid``, an ``auto`` that would pick either)
-raise NotImplementedError (ROADMAP.md A8b). ``plan`` makes the choice,
-which ``utils/doctor.py`` reports.
+``plan`` makes the choice, which ``utils/doctor.py`` reports. In a
+process group every mode runs, and every rank must open the same store:
+``group_budget`` agrees on the least of the ranks' budgets before
+``plan`` runs, so that two cards with different free memory cannot pick
+two stores (one rank would then wait forever in a collective that the
+other never issues) or two hybrid sizes (their slot maps, and so their
+gathers, would part). A streamed batch then carries each rank's rows of
+its pixels (data/loader.py); the hybrid store is held whole on every rank
+(data/hybrid.py).
 
 A store is only built from a cache at the training resolution (both views
 where the config reads the second); any other dataset streams. The gathers
@@ -63,6 +67,13 @@ def budget_bytes(device: torch.device) -> Optional[int]:
         free, _ = torch.cuda.mem_get_info(device)
         return int(FREE_MEMORY_SHARE * free)
     return None
+
+
+def group_budget(device: torch.device) -> Optional[int]:
+    """The budget every rank plans with: the least ``budget_bytes`` over
+    the process group's ranks (None only where no rank has a limit); this
+    rank's own without a group."""
+    return mesh.min_over_ranks(budget_bytes(device), device)
 
 
 def _views(second_view: bool) -> Tuple[str, ...]:
@@ -137,18 +148,16 @@ def build_cache(dataset: Dataset, device: torch.device,
     return store
 
 
-A8B = ("streaming and the hybrid store across processes are not ported "
-       "yet: ROADMAP.md queue A item 8b 'Streaming and hybrid rotation "
-       "across processes'")
-
-
 def plan(dataset: Dataset, hw, second_view: bool, mode: str,
          batch_size: int, budget: Optional[int], world: int = 1
          ) -> Tuple[str, int]:
     """(kind, rows) of the store ``mode`` opens for ``dataset`` at ``hw``
     within ``budget`` bytes a device (None: no limit) on ``world`` ranks:
     ("whole", N), ("sharded", N), ("hybrid", resident rows) or ("stream",
-    0). Raises where the mode cannot be met."""
+    0). Raises where the mode cannot be met. Only the sharded store
+    depends on ``world``: every other mode holds its rows on each rank.
+    In a process group ``budget`` must be the same on every rank
+    (``group_budget``)."""
     n = dataset.n_samples
     if mode == "sharded":
         total = None if budget is None else budget * world
@@ -158,8 +167,6 @@ def plan(dataset: Dataset, hw, second_view: bool, mode: str,
                 f"{world}-rank budget or has no frames.npy at the training "
                 "resolution")
         return "sharded", n
-    if world > 1 and mode in ("off", "hybrid"):
-        raise NotImplementedError(f"--device-cache {mode}: {A8B}")
     if mode == "off":
         return "stream", 0
     if mode != "hybrid" and fits(dataset, hw, second_view, budget):
@@ -168,9 +175,6 @@ def plan(dataset: Dataset, hw, second_view: bool, mode: str,
         raise ValueError("--device-cache on, but the dataset does not fit "
                          "the device budget or has no frames.npy at the "
                          "training resolution")
-    if world > 1:
-        raise NotImplementedError(f"--device-cache auto found that the "
-                                  f"dataset does not fit one device: {A8B}")
     hot_n = hybrid_hot_n(dataset, hw, second_view, budget)
     if mode == "hybrid" and hot_n == 0:
         raise ValueError("--device-cache hybrid, but the dataset has no "
@@ -194,7 +198,7 @@ def open_store(dataset: Dataset, cfg, device: torch.device,
     hw = (cfg.img_height, cfg.img_width)
     second = cfg.needs_second_view if second_view is None else second_view
     kind, rows = plan(dataset, hw, second, cfg.device_cache, cfg.batch_size,
-                      budget_bytes(device), mesh.world())
+                      group_budget(device), mesh.world())
     if kind == "whole":
         nbytes = cache_nbytes(dataset, second)
         printGreen(f"Caching dataset on {device} ({nbytes / 2**20:.0f} MiB)")

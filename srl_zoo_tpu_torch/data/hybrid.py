@@ -40,6 +40,14 @@ row that would have taken it is swept instead. (The JAX package has no
 hold: its validation hot phase reads such slots after the training cold
 phase has written other rows into them.) After ``advance`` the map and the
 bytes agree again.
+
+In a process group (parallel/mesh.py) every rank holds the whole store,
+as JAX replicates it over its mesh, and the same bookkeeping: the window,
+the slot map and the entering, leaving, adopted, held and swept rows are
+host arithmetic on the global batches, which every rank draws alike. A
+rank's streamed batch holds only its own rows' pixels (data/loader.py),
+so ``maybe_adopt`` gathers the batch's frames from every rank before it
+copies the entering ones; each rank sweeps from its own memmap.
 """
 
 from __future__ import annotations
@@ -52,6 +60,7 @@ import torch
 from srl_zoo_tpu_torch import native
 from srl_zoo_tpu_torch.data.device_cache import build_cache
 from srl_zoo_tpu_torch.data.schema import Dataset
+from srl_zoo_tpu_torch.parallel import mesh
 from srl_zoo_tpu_torch.utils.device import upload
 
 SWEEP_CHUNK = 256  # rows per sweep upload (bounds the host staging)
@@ -158,9 +167,17 @@ class RotatingHotStore:
 
     def maybe_adopt(self, host_idx, device_batch: Dict) -> None:
         """Copy a streamed batch's entering rows (not adopted yet) into
-        their slots. ``device_batch`` holds the batch's uint8 pixels on the
-        device (data/transfer.py); nothing crosses the host link. No-op
-        outside a rotation or for a batch with no entering row."""
+        their slots. ``host_idx`` is the global batch's rows;
+        ``device_batch`` holds this rank's rows of its uint8 pixels on the
+        device (data/transfer.py; all rows without a process group), and
+        nothing crosses the host link. No-op outside a rotation or for a
+        batch with no entering row.
+
+        In a process group the batch's pixels are gathered from every rank
+        first (one uint8 all-gather a view read, ``all_gather_frames`` in
+        ``mesh.counts``). Every rank computes the mask of entering rows
+        from the same host state, so all ranks enter the gather or none
+        does."""
         if self._pending_slot is None:
             return
         host_idx = np.asarray(host_idx)
@@ -174,12 +191,17 @@ class RotatingHotStore:
         pos = np.nonzero(m)[0][first]
         dev = self.cache["frames"].device
         p = upload(pos, dev, torch.int64)
-        obs = device_batch["obs"]
+        # the gathers are queued on the compute stream (an nccl collective
+        # waits for the stream's earlier work, and the stream for it), as
+        # are the copies below: they stay ordered after the hot phase's
+        # last K2 read of the slots they write
+        obs = mesh.all_gather_rows(device_batch["obs"], "all_gather_frames")
         v1 = obs[..., :3] if obs.shape[-1] == 6 else obs
         v2 = None
         if self.needs_view2:
-            v2 = device_batch["pos_obs"] if self._view2_from_pos \
-                else obs[..., 3:]
+            v2 = mesh.all_gather_rows(device_batch["pos_obs"],
+                                      "all_gather_frames") \
+                if self._view2_from_pos else obs[..., 3:]
             v2 = v2.index_select(0, p)
         self._write(self._pending_slot[rows], v1.index_select(0, p), v2)
         self._adopted[rows] = True

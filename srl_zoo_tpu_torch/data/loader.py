@@ -16,7 +16,13 @@ Two modes, as in the JAX package:
   decoder, else cv2 on one process-wide thread pool). A producer thread
   assembles the batches into a bounded queue while the device computes;
   with ``pin_memory`` the pixels land in pinned host memory, ready for a
-  non-blocking copy (data/transfer.py).
+  non-blocking copy (data/transfer.py). In a process group
+  (parallel/mesh.py) a batch carries the pixels of this rank's positions
+  only (``mesh.shard_slice``: ``obs`` and ``next_obs`` of those rows,
+  ``pos_obs`` and ``neg_obs`` of their partners), so each rank decodes
+  and uploads B/world rows; the metadata stays the global batch's, which
+  the train step reads whole. (The JAX learner fetches every row and
+  keeps a slice of it: the same batch for a world-th of the host work.)
 
 The batches are the JAX loader's for the same seed, draw for draw:
 
@@ -53,6 +59,7 @@ import numpy as np
 from srl_zoo_tpu_torch import native
 from srl_zoo_tpu_torch.data import samplers
 from srl_zoo_tpu_torch.data.schema import Dataset, resolve_image_path
+from srl_zoo_tpu_torch.parallel import mesh
 
 IMAGE_KEYS = ("obs", "next_obs", "pos_obs", "neg_obs")
 PREFETCH = 3  # image batches the producer thread assembles ahead
@@ -213,9 +220,11 @@ class DataLoader:
                  "reward_classes": ds.reward_classes[nxt],
                  "rewards": ds.rewards[nxt]}
         if self.emit_images:
-            batch["obs"] = self._observation(idx)
+            # this rank's positions of the batch, whose pixels it fetches
+            own = mesh.shard_slice(len(idx))
+            batch["obs"] = self._observation(idx[own])
             if self.next_obs:
-                batch["next_obs"] = self._observation(nxt)
+                batch["next_obs"] = self._observation(nxt[own])
         elif self.slot_map is not None:
             batch["cache_slots"] = self._slots(idx)
             if self.next_obs:
@@ -224,8 +233,8 @@ class DataLoader:
             negs = samplers.triplet_negatives(idx, ds.episode_ids,
                                               self.neg_pool, rng)
             if self.emit_images:
-                batch["pos_obs"] = self._fetch_images(idx, view=1)
-                batch["neg_obs"] = self._fetch_images(negs, view=0)
+                batch["pos_obs"] = self._fetch_images(idx[own], view=1)
+                batch["neg_obs"] = self._fetch_images(negs[own], view=0)
             elif self.slot_map is not None:
                 batch["neg_cache_slots"] = self._slots(negs)
             else:

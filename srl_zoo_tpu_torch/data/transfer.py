@@ -17,6 +17,10 @@ tensor is recorded on the compute stream, so the caching allocator does
 not hand its memory to a later copy while a step still reads it. The
 pinned source of a copy is never written again: each batch has its own,
 and PyTorch's caching host allocator reuses it only after its copy is done.
+In a process group the pixels are this rank's rows of the batch
+(data/loader.py); the hybrid store's adoption all-gathers them from every
+rank (data/hybrid.py), on the compute stream after the event wait, as
+every other read of the batch.
 """
 
 from __future__ import annotations

@@ -14,9 +14,10 @@ run's config) and writes ``states_rewards.npz``, the hand-off artifact
 for downstream RL.
 
 In a process group (parallel/mesh.py) each rank encodes its rows of every
-export batch of the store (a whole or sharded store, which the ranks then
-read in step) and the states are gathered to every rank, as JAX's export
-shards its batches over the mesh and gathers them across processes.
+export batch, from the store (whole, sharded or hybrid, which the ranks
+read in step) or streamed (the loader fetches this rank's rows only), and
+the states are gathered to every rank, as JAX's export shards its batches
+over the mesh and gathers them across processes.
 
     python -m srl_zoo_tpu_torch.evaluation.predict_dataset \\
         --log-folder logs/<run> [--data-folder data/<ds>] [-n N]
@@ -74,7 +75,9 @@ def predict_states(encoder: StateEncoder, store,
 def predict_streamed(encoder: StateEncoder, dataset: Dataset,
                      indices: Optional[np.ndarray] = None) -> np.ndarray:
     """(len(indices), state_dim) float32 states of dataset rows streamed
-    from the host (all rows when ``indices`` is None), in that order."""
+    from the host (all rows when ``indices`` is None), in that order. In a
+    process group the export batch is a multiple of the world size (the
+    loader pads the last one), and each rank encodes its rows of it."""
     cfg, dev = encoder.cfg, encoder.device
     idx = np.arange(dataset.n_samples) if indices is None \
         else np.asarray(indices)
@@ -82,14 +85,14 @@ def predict_streamed(encoder: StateEncoder, dataset: Dataset,
         return np.zeros((0, cfg.state_dim), np.float32)
     flags = {k: v for k, v in batch_flags(cfg).items()
              if k in ("stack_views", "img_hw", "num_threads")}
-    loader = DataLoader(dataset, idx, BATCH, shuffle=False,
-                        wraparound=False, emit_images=True,
+    loader = DataLoader(dataset, idx, BATCH + (-BATCH) % mesh.world(),
+                        shuffle=False, wraparound=False, emit_images=True,
                         pin_memory=dev.type == "cuda", **flags)
     out = []
     with torch.inference_mode():
         for batch in stream_batches(loader, dev, cfg.stream_overlap):
-            states = encoder.model.encode(normalize_streamed(
-                batch["obs"], cfg.normalize_mode, dev))
+            states = mesh.all_gather_rows(encoder.model.encode(
+                normalize_streamed(batch["obs"], cfg.normalize_mode, dev)))
             out.append(states[:int(batch["valid"].sum())])
     return torch.cat(out).cpu().numpy()
 

@@ -18,10 +18,18 @@ The collectives the data-parallel step needs live here, each counted in
   live on another rank); its backward sums the ranks' gradients and keeps
   this rank's rows;
 * :func:`all_gather_rows`: the same without a gradient (exported states,
-  the sharded top-k's candidates);
+  the sharded top-k's candidates, and, counted apart as
+  ``all_gather_frames``, the uint8 frames of a streamed batch that the
+  hybrid store adopts);
 * :func:`reduce_scatter_rows`: the sharded store's gather;
 * :func:`average_gradients`: one flat all-reduce of the parameters'
-  gradients, divided by the world size.
+  gradients, divided by the world size;
+* :func:`min_over_ranks`: the least of an integer over the ranks (the
+  frame store's budget, so that every rank plans the same store).
+
+A streamed batch is fetched in parts: each rank's loader reads the pixels
+of its positions only (:func:`shard_slice`), so the host decode and the
+link carry B/world rows a rank.
 
 Without a process group every helper is the identity of world size 1 and
 issues nothing. A group of world size 1 (one GPU, ``--coordinator-address``
@@ -32,7 +40,7 @@ exercised on one card.
 from __future__ import annotations
 
 import os
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
 
 import numpy as np
 import torch
@@ -40,7 +48,7 @@ import torch.distributed as dist
 
 # collectives issued through this module since the counts were zeroed
 counts: Dict[str, int] = {"all_reduce": 0, "all_gather": 0,
-                          "reduce_scatter": 0}
+                          "all_gather_frames": 0, "reduce_scatter": 0}
 
 
 def active() -> bool:
@@ -97,35 +105,39 @@ def check_batch_size(batch_size: int, what: str = "--batch-size") -> None:
                          f"world size {w}: each rank computes B/world rows")
 
 
-def shard_rows(x):
-    """This rank's contiguous block of the leading axis of ``x`` (numpy or
-    a tensor), as ``shard_batch`` lays a batch over a mesh."""
+def shard_slice(n: int) -> slice:
+    """This rank's positions ``[r * n / w, (r + 1) * n / w)`` of a global
+    batch of ``n`` rows, as ``shard_batch`` lays a batch over a mesh."""
     w = world()
     if w == 1:
-        return x
-    n = x.shape[0]
+        return slice(0, n)
     check_batch_size(n, "a batch of")
     b = n // w
     r = rank()
-    return x[r * b:(r + 1) * b]
+    return slice(r * b, (r + 1) * b)
 
 
-def _all_gather_into(out: torch.Tensor, t: torch.Tensor) -> None:
+def shard_rows(x):
+    """This rank's contiguous block of the leading axis of ``x`` (numpy or
+    a tensor)."""
+    return x if world() == 1 else x[shard_slice(x.shape[0])]
+
+
+def all_gather_rows(t: torch.Tensor, key: str = "all_gather"
+                    ) -> torch.Tensor:
+    """The ranks' equal row blocks joined in rank order, no gradient; any
+    dtype that the backend gathers (uint8 frames too), counted under
+    ``key``."""
+    if not active():
+        return t
+    out = t.new_empty((world() * t.shape[0],) + tuple(t.shape[1:]))
     # torch 2.13 names the one-tensor collectives all_gather_single and
     # reduce_scatter_single and deprecates the older names, which are all
     # that earlier releases have
     fn = getattr(dist, "all_gather_single", None) or \
         dist.all_gather_into_tensor
     fn(out, t.contiguous())
-    counts["all_gather"] += 1
-
-
-def all_gather_rows(t: torch.Tensor) -> torch.Tensor:
-    """The ranks' equal row blocks joined in rank order, no gradient."""
-    if not active():
-        return t
-    out = t.new_empty((world() * t.shape[0],) + tuple(t.shape[1:]))
-    _all_gather_into(out, t)
+    counts[key] += 1
     return out
 
 
@@ -189,6 +201,25 @@ def average_gradients(params: Iterable[torch.Tensor]) -> None:
     for g in grads:
         g.copy_(flat[start:start + g.numel()].view_as(g))
         start += g.numel()
+
+
+# the int64 that stands for "no limit" in min_over_ranks: any limit wins
+NO_LIMIT = np.iinfo(np.int64).max
+
+
+def min_over_ranks(value: Optional[int], device: torch.device
+                   ) -> Optional[int]:
+    """The least of ``value`` over the ranks, None (no limit) only where
+    every rank has none: one all-reduce MIN of an int64 on ``device`` (the
+    group's device: CUDA under nccl). Without a group, ``value``."""
+    if not active():
+        return value
+    t = torch.tensor([NO_LIMIT if value is None else int(value)],
+                     dtype=torch.int64, device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MIN)
+    counts["all_reduce"] += 1
+    least = int(t.item())
+    return None if least == NO_LIMIT else least
 
 
 def pad_to_world(idx: np.ndarray) -> np.ndarray:

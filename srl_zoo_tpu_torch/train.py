@@ -45,11 +45,13 @@ Data parallelism: N processes on one host, one per GPU, each run with
 (rank 0 listens there; ``nccl`` on CUDA, ``gloo`` with ``--device
 cpu``), train one model on the global batch (parallel/mesh.py); the
 batch size must be divisible by N. Rank 0 writes the run folder, rank i
-its logs into ``<log>/.proc<i>``. ``--device-cache on`` or ``sharded``
-(the store split over the ranks, ops/sharded_store.py), or an ``auto``
-that finds the store fits one device; streaming and the hybrid store
-across processes raise NotImplementedError (ROADMAP.md A8b). A
-``--coordinator-address`` with one process starts a group of one.
+its logs into ``<log>/.proc<i>``. Every ``--device-cache`` mode runs
+across processes: ``sharded`` splits the store over the ranks
+(ops/sharded_store.py); ``off`` streams each rank's rows of a batch;
+every rank holds the whole hybrid store and adopts a streamed batch's
+entering rows from all ranks' pixels; every rank plans with the least of
+the ranks' budgets. A ``--coordinator-address`` with one process starts a
+group of one.
 """
 
 from __future__ import annotations
@@ -65,7 +67,6 @@ import torch
 
 from srl_zoo_tpu_torch.config import (SRLConfig, build_config,
                                       parse_loss_arguments)
-from srl_zoo_tpu_torch.data.device_cache import A8B
 from srl_zoo_tpu_torch.data.schema import load_dataset, save_states_rewards
 from srl_zoo_tpu_torch.evaluation.gtc import ground_truth_correlation
 from srl_zoo_tpu_torch.plotting.representation_plot import (
@@ -154,14 +155,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
-def _check_cli_flags(args: argparse.Namespace) -> None:
-    """Refuse, before anything is written, the store modes that several
-    processes do not run yet."""
-    if args.num_processes > 1 and args.device_cache in ("off", "hybrid"):
-        raise NotImplementedError(f"--device-cache {args.device_cache} "
-                                  f"with --num-processes: {A8B}")
-
-
 def _process_group(args: argparse.Namespace, device: torch.device) -> bool:
     """Join the process group the flags ask for (a CUDA rank takes GPU
     ``process_id`` mod the GPU count unless ``--device`` names one);
@@ -220,7 +213,6 @@ def _epoch_plots(dataset, log_folder: str, every: int, display: bool):
 
 def main(argv=None) -> str:
     args = parse_args(argv)
-    _check_cli_flags(args)
     device = resolve_device(args.device)  # no GPU: raise before any write
     started = _process_group(args, device)
     if started and device.type == "cuda":

@@ -39,7 +39,12 @@ on a CUDA device.
 In a process group (parallel/mesh.py) every rank runs this loop on the
 same global batches, each computing its rows of them (training/
 train_step.py), and the losses, metrics and parameters are the same on
-every rank. Rank 0 owns the run folder: it alone writes the model and the
+every rank. Every store mode runs there: the ranks agree on one plan
+(data/device_cache.py ``group_budget``); a streamed phase's loader
+fetches this rank's rows of each batch (data/loader.py); a hybrid store
+is whole on every rank, its phases and rotation the same on each, and
+its adoption gathers a streamed batch's frames from every rank
+(data/hybrid.py). Rank 0 owns the run folder: it alone writes the model and the
 resume checkpoints, which ``resume`` reads on every rank; rank i writes
 its metrics (and its trace) into ``<log>/.proc<i>``. The exported states
 are gathered to every rank.

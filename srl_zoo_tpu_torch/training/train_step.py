@@ -43,7 +43,8 @@ here only the real steps run.
 In a process group (parallel/mesh.py) every rank reads the same global
 batch and computes its block of B/world rows of it: the store's gather
 (K2, or the sharded store's reduce-scatter and K2) gives this rank's rows,
-and the random draws are the global batch's, of which each rank keeps its
+a streamed batch carries only those rows' pixels (data/loader.py), which
+K2 normalizes as they are, and the random draws are the global batch's, of which each rank keeps its
 rows, so that they are the single process's draws. BatchNorm takes the
 global batch's statistics (models/batchnorm.py). The model's state-sized
 outputs are then gathered into the global batch with a gradient
@@ -135,7 +136,8 @@ def _images(model: SRLModules, store: Optional[Dict[str, torch.Tensor]],
             batch: Dict):
     """(obs, next_obs, pos_obs, neg_obs) normalized on the device, the
     last three None where no loss reads them: from the batch's uint8
-    pixels (a streamed batch, data/transfer.py), or gathered from the
+    pixels (a streamed batch, data/transfer.py, whose pixels are this
+    rank's rows already: nothing shards them again), or gathered from the
     store by row index, or by store slot (``cache_slots``,
     ``next_cache_slots``, ``neg_cache_slots``: the hybrid store)."""
     cfg = model.cfg

@@ -6,7 +6,8 @@ frame-cache budget, and if not, how fast is the host link that streams
 it? The doctor answers it before a long run does:
 
 * the device, its total and free memory and the frame-cache budget
-  (data/device_cache.py ``budget_bytes``);
+  (data/device_cache.py ``group_budget``: in a process group, the least
+  of the ranks' budgets, which every rank plans with);
 * the pinned host-to-device bandwidth, measured under a time bound: a
   copy that hangs makes the doctor print a diagnosis and exit with code 2;
 * for ``--data-folder`` at ``--img-size``, the store ``--device-cache
@@ -78,7 +79,8 @@ def measure_link_bandwidth(device: torch.device, n_mib: int = LINK_MIB
 
 def _report_device(device: torch.device):
     """Print the device, its memory and the budget; returns the budget."""
-    from srl_zoo_tpu_torch.data.device_cache import BUDGET_ENV, budget_bytes
+    from srl_zoo_tpu_torch.data.device_cache import BUDGET_ENV, group_budget
+    from srl_zoo_tpu_torch.parallel import mesh
     if device.type == "cuda":
         free, total = torch.cuda.mem_get_info(device)
         printGreen(f"device: {torch.cuda.get_device_name(device)} "
@@ -87,10 +89,11 @@ def _report_device(device: torch.device):
                    f"{free / 2**30:.1f} GiB free")
     else:
         printGreen(f"device: {device} (no device memory limit)")
-    budget = budget_bytes(device)
+    budget = group_budget(device)
+    agreed = f", the least of {mesh.world()} ranks'" if mesh.active() else ""
     printGreen("frame-cache budget: " + (
         "none" if budget is None else f"{budget / 2**30:.2f} GiB")
-        + f" a device (override: {BUDGET_ENV})")
+        + f" a device{agreed} (override: {BUDGET_ENV})")
     return budget
 
 

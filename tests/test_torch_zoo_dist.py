@@ -68,10 +68,11 @@ def _rank_main(scenario, rank, world, port, out_dir, args):
         raise
 
 
-def _spawn(scenario, out_dir, *args, world=WORLD, meanwhile=None):
+def _spawn(scenario, out_dir, *args, world=WORLD, meanwhile=None,
+           timeout=TIMEOUT_S):
     """[each rank's result] of ``scenario(*args)`` run by ``world`` gloo
-    ranks, each bounded by ``TIMEOUT_S``; ``meanwhile()`` runs in this
-    process while they do."""
+    ranks, each bounded by ``timeout`` seconds; ``meanwhile()`` runs in
+    this process while they do."""
     os.makedirs(out_dir, exist_ok=True)
     ctx = mp.get_context("spawn")
     port = _free_port()
@@ -85,7 +86,7 @@ def _spawn(scenario, out_dir, *args, world=WORLD, meanwhile=None):
             meanwhile()
     finally:
         for p in procs:
-            p.join(TIMEOUT_S)
+            p.join(timeout)
         for p in procs:
             if p.is_alive():
                 p.kill()
@@ -643,7 +644,7 @@ def test_two_ranks_learn_as_jax(synthetic_dataset, two_pass_bn_variance,
 
 
 # ---------------------------------------------------------------------------
-# what several processes refuse, and the batch split
+# the store plan at world size 2, and the batch split
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("mode,budget_rows,want", [
@@ -651,25 +652,28 @@ def test_two_ranks_learn_as_jax(synthetic_dataset, two_pass_bn_variance,
     ("sharded", None, ("sharded", 96)),
     ("sharded", 48.5, ("sharded", 96)),
     ("auto", None, ("whole", 96)),
-    ("auto", 40.5, NotImplementedError),
-    ("off", None, NotImplementedError),
-    ("hybrid", None, NotImplementedError),
+    ("auto", 40.5, ("hybrid", 40)),
+    ("off", None, ("stream", 0)),
+    ("hybrid", None, ("whole", 96)),
     ("sharded", 40.5, ValueError),
 ])
 def test_store_plan_at_world_size_two(synthetic_dataset, mode, budget_rows,
                                       want):
     """At world size 2: the whole store, the sharded one within the two
-    ranks' budget (two blocks of 48.5 rows hold 96), and an ``auto`` that
-    fits; streaming and the hybrid store raise NotImplementedError naming
-    ROADMAP.md A8b, and a sharded store over both budgets ValueError."""
+    ranks' budget (two blocks of 48.5 rows hold 96), and, as at world size
+    1, an ``auto`` that fits, an ``auto`` that goes hybrid at 40.5 rows,
+    streaming, and a forced hybrid store without a budget (which holds
+    every row: the whole store); a sharded store over both budgets raises
+    ValueError."""
     from srl_zoo_tpu_torch.data.device_cache import plan
     budget = None if budget_rows is None else int(budget_rows * 32 * 32 * 3)
     args = (synthetic_dataset, (32, 32), False, mode, 16, budget, 2)
     if isinstance(want, tuple):
         assert plan(*args) == want
+        if mode != "sharded":  # every other mode plans as at world size 1
+            assert plan(*args[:-1], 1) == want
     else:
-        with pytest.raises(want, match="item 8b" if want is
-                           NotImplementedError else "sharded"):
+        with pytest.raises(want, match="sharded"):
             plan(*args)
 
 

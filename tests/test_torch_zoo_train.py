@@ -1054,22 +1054,53 @@ def test_exp_config_round_trips_between_the_packages(tmp_path):
     assert abs(bn.momentum - 0.01) < 1e-12
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--num-processes", "2", "--device-cache", "off"], "item 8"),
-    (["--num-processes", "2", "--device-cache", "hybrid"], "item 8"),
+@pytest.mark.parametrize("flags,budget_rows", [
+    (["--num-processes", "2", "--device-cache", "off"], None),
+    (["--num-processes", "2", "--device-cache", "hybrid"], 40),
 ])
 def test_unported_flags_name_their_roadmap_item(synthetic_dataset, tmp_path,
-                                                flags, item):
-    """Streaming and the hybrid store across processes (ROADMAP.md A8b)
-    are refused before a process group starts or anything is written."""
-    from srl_zoo_tpu_torch.train import main
-    argv = ["--data-folder", synthetic_dataset.data_folder, "--state-dim",
-            str(STATE_DIM), "--log-folder", str(tmp_path / "run"),
-            "--device", "cpu", *flags]
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md queue A {item}"):
-        main(argv)
-    assert not os.path.exists(tmp_path / "run")
+                                                flags, budget_rows):
+    """Streaming and the hybrid store across processes (ROADMAP.md A8b,
+    once refused here) run through the train CLI: two processes of
+    ``python -m srl_zoo_tpu_torch.train ... --num-processes 2`` on the CPU
+    (gloo) train one epoch, streamed or through a rotating hybrid store of
+    40 of the 96 rows, and export the same finite states of every row
+    into rank 0's run folder and rank 1's ``.proc1``."""
+    import subprocess
+    import sys
+    from test_torch_zoo_dist import _free_port
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    if budget_rows:
+        env["SRL_ZOO_CACHE_BUDGET_MB"] = str((budget_rows + 0.5) * 32 * 32
+                                             * 3 / 2**20)
+    run = tmp_path / "run"
+    argv = [sys.executable, "-m", "srl_zoo_tpu_torch.train",
+            "--data-folder", synthetic_dataset.data_folder, "--state-dim",
+            str(STATE_DIM), "-bs", "16", "--epochs", "1", "--log-folder",
+            str(run), "--device", "cpu", "--no-display-plots",
+            "--coordinator-address", f"127.0.0.1:{_free_port()}", *flags]
+    procs = [subprocess.Popen(argv + ["--process-id", str(r)], env=env,
+                              cwd=os.path.dirname(os.path.dirname(
+                                  os.path.abspath(__file__))),
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    out = []
+    try:
+        for p in procs:
+            out.append(p.communicate(timeout=120)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(10)
+    assert [p.returncode for p in procs] == [0, 0], "\n".join(out)
+    assert ("Hybrid device cache: 40/96" in out[0]) == bool(budget_rows)
+    states = [np.load(run / name / "states_rewards.npz")["states"]
+              for name in (".", ".proc1")]
+    assert states[0].shape == (96, STATE_DIM)
+    assert np.isfinite(states[0]).all()
+    np.testing.assert_array_equal(states[0], states[1])
 
 
 @pytest.mark.parametrize("flags", [
