@@ -7,6 +7,7 @@ one NVIDIA GPU.
     python3 chip_smoke.py --step-seeds N
     python3 chip_smoke.py --data-layer
     python3 chip_smoke.py --dist-tooling
+    python3 chip_smoke.py --alternatives
 
 Needs one CUDA card, nvcc (CUDA_HOME or PATH) and this checkout; it builds
 the kernels of ``srl_zoo_tpu_torch/csrc`` itself. Phases, each of which
@@ -67,6 +68,30 @@ prints its wall time:
    the whole set: indices equal but at counted near ties, distances
    within 1e-5 relative; the block calls, the merge and the whole-set
    call timed (CUDA events). Launches counted from zero: 4 of K3.
+2c. The measured alternatives (ROADMAP A10), each checked on the card
+   and timed beside the port's formulation (CUDA events: ALT_CALLS
+   back-to-back calls a window after a warm-up, ALT_REPEATS windows of
+   each formulation in turns, the median kept beside the range):
+   config 1's CNNDecoder (state 200 -> 224x224x3) with
+   ``deconv="conv_transpose"`` (default) and ``"subpixel"`` at batch 32
+   and 256, f32 and bf16, forward and forward + backward (in f32 at
+   batch 32 the outputs and weight gradients within 1e-4 of scale, eval
+   mode); the 3x3/2 pool of relu'd (b, 112, 112, 64) input at batch 32
+   and 256, f32 and bf16, forward and forward + backward, by K1f/K1b
+   (default), ``F.max_pool2d`` on the -inf-padded input,
+   ``max_pool_tree`` and ``max_pool_argmax`` (y bit-equal across the
+   four; K1b's and ``max_pool_argmax``'s input gradients bit-equal on
+   integer-valued inputs); config 5's ResNet-18 encoder at batch 32,
+   224 px, 3 and 6 channels, f32 and bf16, forward + backward, with the
+   direct stem (default) and the s2d stem, and each stem convolution
+   alone (the f32 s2d encoder's deviation from float64 within twice the
+   direct one's, the stem convolutions within 1e-5 of scale in f32 and
+   2^-7 in bf16); and the neighbour routes at Q 4,096, N 20,000, D 200,
+   k 6: fused (K3, default), ``full`` (K4 and a sort) and ``blocked``
+   (indices equal to ``full``'s but at counted near ties). One
+   ``{"alternatives": [...]}`` line before the card line: name, shape,
+   dtype, pass, ms and range per formulation and the ratio to the
+   default.
 3. The inference path at the full width of config 1 (custom_cnn,
    224x224x3, state_dim 200), from a seeded random model saved as a run
    folder: the HTTP server (coalescing 5 ms, max batch 32) answers two
@@ -155,6 +180,14 @@ prints its wall time:
    names, which must be the whole store. It runs before phase 4's
    configs, right after the dataset is written: after phase 4's training
    profiles CUPTI has been seen to record no kernel at all.
+4d. The torch export (``export/torch_export.py``) of phase 4's runs of
+   configs 1, 2 (VAE: mu), 5 (ResNet-18), the 6-channel config and the
+   mlp as TorchScript, and of config 5's as a ``--state-dict`` file
+   (torchvision's keys, no normalizer, the run's weights); a subprocess
+   that imports torch only, outside the checkout, loads each artifact on
+   the card and encodes 256 of the run's uint8 frames as float, with no
+   module of the port loaded; its states within 1e-4 of the largest
+   |state| of the port's StateEncoder on the card, and frames/s of both.
 4b. The data layer at the same width (224x224x3, state_dim 200, batch
    32). 1,024 frames of phase 4's scene (both views, four episodes) are
    recorded as JPEG episodes with ``DatasetRecorder`` and preprocessed
@@ -225,8 +258,9 @@ prints its wall time:
 6. A ``{"kernels": [...]}`` line (launches summed over all the paths;
    every kernel with ``device_ms``, the kernel alone, beside ``ms``, the
    wrapper; K1f and K1b also with ``device_ms_bf16``, ``ms_bf16`` and
-   ``bound_ms_bf16``, their three pools in bf16), the nvidia-smi line,
-   and last ``{"ok": true, "device": {...}}``.
+   ``bound_ms_bf16``, their three pools in bf16), phase 2c's
+   ``{"alternatives": [...]}`` line, the nvidia-smi line, and last
+   ``{"ok": true, "device": {...}}``.
 
 With ``--pools-of CHECKOUT`` it imports the port package of another
 checkout (e.g. a ``git archive`` of the parent commit), builds that
@@ -239,6 +273,9 @@ one run on one card.
 
 With ``--data-layer`` it runs phase 2's K2 over the identity index and
 phase 4b alone, on a freshly written phase 4 dataset.
+
+With ``--alternatives`` it runs phase 2c alone and prints its line and
+the card.
 
 With ``--dist-tooling`` it runs phases 2b, 4a and 4c alone, on a freshly
 written phase 4 dataset.
@@ -3082,6 +3119,444 @@ def check_latent_sweeps(run_dir: str) -> None:
         "its largest value")
 
 
+# ---------------------------------------------------------------------------
+# phase 2c: the measured alternatives (ROADMAP A10)
+# ---------------------------------------------------------------------------
+
+ALT_CALLS = 20  # back-to-back calls in a timed window (CUDA events)
+ALT_REPEATS = 3  # windows of each formulation, in turns; the median is kept
+ALT_BATCHES = (32, 256)
+ALT_POOL = (IMG[0] // 2, IMG[0] // 2, 64)  # config 1's first pool input
+ALT_STEM_BATCH = 32
+ALT_DTYPES = ("float32", "bfloat16")
+
+
+def time_turns(fns: dict) -> dict:
+    """{formulation: [ms a call in each of ALT_REPEATS windows of ALT_CALLS
+    calls]}, the formulations taking their windows in turns after one
+    warm-up call each."""
+    import torch
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    windows = {f: [] for f in fns}
+    for _ in range(ALT_REPEATS):
+        for f, fn in fns.items():
+            windows[f].append(time_ms(fn, iters=ALT_CALLS, warmup=1))
+    return windows
+
+
+def alt_entry(name: str, shape, dtype: str, what: str, windows: dict,
+              default: str) -> dict:
+    """One record of the ``{"alternatives": [...]}`` line: each
+    formulation's median ms a call, its windows' range, and the ratio of
+    its median to the port's default's."""
+    ms = {f: float(np.median(w)) for f, w in windows.items()}
+    entry = {"name": name, "shape": list(shape), "dtype": dtype,
+             "pass": what, "default": default, "ms": ms,
+             "spread": {f: [min(w), max(w)] for f, w in windows.items()},
+             "ratio": {f: m / ms[default] for f, m in ms.items()}}
+    log(f"2c {name} {tuple(shape)} {dtype} {what}: " + ", ".join(
+        f"{f} {m:.4f} ms [{min(windows[f]):.4f}-{max(windows[f]):.4f}] "
+        f"({entry['ratio'][f]:.3f}x)" for f, m in ms.items()))
+    return entry
+
+
+def close_rel_max(got, want, rtol: float, what: str, floor: float = 0.0):
+    """|got - want| <= rtol * max(max |want|, floor), else raises."""
+    err = float((got.double() - want.double()).abs().max())
+    scale = max(float(want.double().abs().max()), floor, 1e-30)
+    if not err <= rtol * scale:
+        raise AssertionError(f"{what}: max error {err} > {rtol} x {scale}")
+    return err / scale
+
+
+def alt_decoder(dev, g) -> list:
+    """Config 1's CNNDecoder (state 200 -> 224x224x3) with each
+    deconvolution, from one state dict: in float32 at batch 32 in eval
+    mode, the reconstructions and every weight gradient within 1e-4 of
+    scale (a train-mode BatchNorm backward at this size cancels to ~1e-3
+    of scale in float32 on any device, phase 4); then timed in train mode
+    at batch 32 and 256, f32 and bf16, forward and forward + backward."""
+    import torch
+    from srl_zoo_tpu_torch.models.decoders import CNNDecoder
+    from srl_zoo_tpu_torch.models.precision import compute_dtype
+    torch.manual_seed(SEED)
+    state = CNNDecoder(STATE_DIM, IMG[0], IMG[1], IMG[2]).state_dict()
+    entries = []
+    for dtype in ALT_DTYPES:
+        decs = {}
+        for deconv in ("conv_transpose", "subpixel"):
+            dec = CNNDecoder(STATE_DIM, IMG[0], IMG[1], IMG[2],
+                             dtype=compute_dtype(dtype), deconv=deconv)
+            dec.load_state_dict(state)
+            decs[deconv] = dec.to(dev, memory_format=torch.channels_last)
+        for b in ALT_BATCHES:
+            z = torch.randn((b, STATE_DIM), generator=g, device=dev)
+            cot = torch.randn((b, IMG[2], IMG[0], IMG[1]), generator=g,
+                              device=dev).contiguous(
+                memory_format=torch.channels_last)
+            if dtype == "float32" and b == ALT_BATCHES[0]:
+                got = {}
+                for deconv, dec in decs.items():
+                    dec.eval().zero_grad()
+                    y = dec(z)
+                    y.backward(cot)
+                    got[deconv] = (y.detach(), {n: p.grad.clone() for n, p
+                                                in dec.named_parameters()})
+                (y0, g0), (y1, g1) = got["conv_transpose"], got["subpixel"]
+                err = close_rel_max(y1, y0, 1e-4, "decoder subpixel output")
+                floor = 1e-2 * max(float(v.abs().max()) for v in g0.values())
+                gerr = max(close_rel_max(g1[n], g0[n], 1e-4,
+                                         f"decoder subpixel grad {n}", floor)
+                           for n in g0)
+                log(f"2c decoder f32 batch {b}: subpixel against "
+                    f"conv_transpose, output {err:.3g} and weight "
+                    f"gradients {gerr:.3g} of scale (held to 1e-4)")
+            for dec in decs.values():
+                dec.train()
+
+            def fwd(dec):
+                def run():
+                    with torch.no_grad():
+                        dec(z)
+                return run
+
+            def fwd_bwd(dec):
+                return lambda: dec(z).backward(cot)
+            for what, make in (("forward", fwd), ("forward+backward",
+                                                 fwd_bwd)):
+                entries.append(alt_entry(
+                    "decoder", (b, STATE_DIM, *IMG), dtype, what,
+                    time_turns({d: make(dec) for d, dec in decs.items()}),
+                    "conv_transpose"))
+    return entries
+
+
+def max_pool2d_nhwc(x):
+    """The SAME 3x3/2 pool of NHWC ``x`` by ``F.max_pool2d`` on the input
+    padded with -inf, NHWC out."""
+    import torch.nn.functional as F
+    from srl_zoo_tpu_torch.ops.fused_pool import same_pads
+    (pt, pb), (pl, pr) = (same_pads(x.shape[1], 3, 2),
+                          same_pads(x.shape[2], 3, 2))
+    xp = F.pad(x.permute(0, 3, 1, 2), (pl, pr, pt, pb), value=float("-inf"))
+    return F.max_pool2d(xp, 3, stride=2).permute(0, 2, 3, 1)
+
+
+def alt_pools(dev, g) -> list:
+    """The 3x3/2 SAME pool of relu'd input at config 1's first pool,
+    batch 32 and 256, f32 and bf16, by four formulations: K1f/K1b (the
+    port's path, ``relu_max_pool``), ``F.max_pool2d`` on the -inf-padded
+    input, ``max_pool_tree`` and ``max_pool_argmax``. y equal bit for bit
+    across the four; on integer-valued inputs (ties in most windows) the
+    input gradients of K1b and ``max_pool_argmax`` equal bit for bit;
+    then each timed, forward and forward + backward."""
+    import torch
+    from srl_zoo_tpu_torch.ops.fused_pool import relu_max_pool
+    from srl_zoo_tpu_torch.ops.pooling import max_pool_argmax, max_pool_tree
+    forms = {"K1f/K1b": relu_max_pool, "max_pool2d": max_pool2d_nhwc,
+             "tree": max_pool_tree, "argmax": max_pool_argmax}
+    entries = []
+    for dtype in ALT_DTYPES:
+        dt = getattr(torch, dtype)
+        for b in ALT_BATCHES:
+            shape = (b,) + ALT_POOL
+            x = torch.relu(torch.randn(shape, generator=g, device=dev)).to(dt)
+            # integer values from 1: relu passes them, every window's
+            # maximum is above 0 (K1b routes nothing where it is <= 0)
+            xi = torch.randint(1, 5, shape, generator=g, device=dev).to(dt)
+            with torch.no_grad():
+                ys = {f: fn(x) for f, fn in forms.items()}
+            gy = torch.randint(-3, 4, ys["tree"].shape, generator=g,
+                               device=dev).to(dt)
+            for f, y in ys.items():
+                if not torch.equal(y, ys["K1f/K1b"]):
+                    raise AssertionError(f"pool {shape} {dtype}: {f}'s y "
+                                         "differs from K1f's")
+            dx = {}
+            for f in ("K1f/K1b", "argmax"):
+                xg = xi.clone().requires_grad_()
+                dx[f] = torch.autograd.grad(forms[f](xg), xg, gy)[0]
+            if not torch.equal(dx["K1f/K1b"], dx["argmax"]):
+                raise AssertionError(f"pool {shape} {dtype}: argmax's input "
+                                     "gradient differs from K1b's")
+            xg = x.clone().requires_grad_()
+
+            def fwd(fn):
+                def run():
+                    with torch.no_grad():
+                        fn(x)
+                return run
+
+            def fwd_bwd(fn):
+                return lambda: torch.autograd.grad(fn(xg), xg, gy)
+            for what, make in (("forward", fwd), ("forward+backward",
+                                                 fwd_bwd)):
+                entries.append(alt_entry(
+                    "pool", shape, dtype, what,
+                    time_turns({f: make(fn) for f, fn in forms.items()}),
+                    "K1f/K1b"))
+            log(f"2c pool {shape} {dtype}: y equal across the four; K1b's "
+                "and argmax's input gradients equal on integer inputs")
+    return entries
+
+
+def rel_l2(got, want) -> float:
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).norm() / want.norm())
+
+
+def flat_grads(grads: dict, keys):
+    import torch
+    return torch.cat([grads[k].double().cpu().ravel() for k in keys])
+
+
+def alt_stem(dev, g) -> list:
+    """Config 5's ResNet-18 encoder (224 px, state 200) at 3 and 6
+    channels with each stem, from one state dict, train mode, forward +
+    backward. At batch CPU_STEP_BATCH in float32 the s2d encoder's
+    output, whole gradient and stem gradient (conv1, bn1) must deviate
+    from the direct encoder run in float64 on the CPU by at most twice the
+    larger of the direct float32 encoder's deviations on the card and on
+    the CPU (+1e-5), the rule phase 4 holds the card's ResNet step to; in bfloat16 both encoders'
+    deviations are printed and their values must be finite. Each stem
+    convolution alone (forward + the weight's gradient, batch 32) is held
+    to the direct one within 1e-5 of scale in f32 and 2^-7 in bf16. Then
+    the encoders at batch 32 and the stem convolutions are timed."""
+    import torch
+    from srl_zoo_tpu_torch.models.precision import compute_dtype, conv
+    from srl_zoo_tpu_torch.models.resnet import ResNet18, s2d_stem
+    entries = []
+    b, bc = ALT_STEM_BATCH, CPU_STEP_BATCH
+    for c in (3, 6):
+        torch.manual_seed(SEED + c)
+        state = ResNet18(STATE_DIM, c).state_dict()
+        x = torch.rand((b, IMG[0], IMG[1], c), generator=g,
+                       device=dev) * 2 - 1
+        cot = torch.randn((b, STATE_DIM), generator=g, device=dev)
+        ref = ResNet18(STATE_DIM, c)
+        ref.load_state_dict(state)
+        ref = ref.double().train()
+        y64 = ref(x[:bc].double().cpu())
+        y64.backward(cot[:bc].double().cpu())
+        g64 = {n: p.grad for n, p in ref.named_parameters()}
+        stem_keys = [n for n in g64 if n.startswith(("conv1.", "bn1."))]
+
+        def deviation(m, xb, cotb) -> dict:
+            y = m(xb)
+            y.backward(cotb)
+            grads = {n: p.grad for n, p in m.named_parameters()}
+            if not (torch.isfinite(y).all() and all(
+                    torch.isfinite(v).all() for v in grads.values())):
+                raise AssertionError(f"stem: {c} channels, values not "
+                                     "finite")
+            return {"output": rel_l2(y, y64),
+                    "gradient": rel_l2(flat_grads(grads, g64),
+                                       flat_grads(g64, g64)),
+                    "stem": rel_l2(flat_grads(grads, stem_keys),
+                                   flat_grads(g64, stem_keys))}
+        cpu = ResNet18(STATE_DIM, c)
+        cpu.load_state_dict(state)
+        cpu_dev = deviation(cpu.train(), x[:bc].cpu(), cot[:bc].cpu())
+        for dtype in ALT_DTYPES:
+            dt = compute_dtype(dtype)
+            models, dev_of = {}, {}
+            for stem in ("direct", "s2d"):
+                m = ResNet18(STATE_DIM, c, dtype=dt, stem=stem)
+                m.load_state_dict(state)
+                m = m.to(dev, memory_format=torch.channels_last).train()
+                dev_of[stem] = deviation(m, x[:bc], cot[:bc])
+                models[stem] = m
+            log(f"2c stem {c} channels {dtype}, batch {bc}: relative L2 "
+                f"from the float64 direct encoder: {dev_of}; the direct "
+                f"float32 encoder on the CPU: {cpu_dev}")
+            if dtype == "float32":
+                over = [k for k, v in dev_of["s2d"].items() if v > 2 * max(
+                    dev_of["direct"][k], cpu_dev[k]) + 1e-5]
+                if over:
+                    raise AssertionError(f"stem s2d {c} channels: {over} "
+                                         "past twice the direct encoder's "
+                                         f"on the card or CPU: {dev_of}, "
+                                         f"{cpu_dev}")
+            conv1 = models["direct"].conv1
+            stems = {"direct": lambda: conv(conv1, x.permute(0, 3, 1, 2),
+                                            dt),
+                     "s2d": lambda: s2d_stem(conv1, x, dt)}
+            gy = torch.randn((b, 64, IMG[0] // 2, IMG[1] // 2), generator=g,
+                             device=dev).to(dt or torch.float32).contiguous(
+                memory_format=torch.channels_last)
+            outs = {}
+            for stem, fn in stems.items():
+                conv1.weight.grad = None
+                y = fn()
+                y.backward(gy)
+                outs[stem] = (y.detach(), conv1.weight.grad.clone())
+            rtol = 1e-5 if dtype == "float32" else 2.0 ** -7
+            err = close_rel_max(outs["s2d"][0], outs["direct"][0], rtol,
+                                f"s2d stem conv {c} channels {dtype}")
+            gerr = close_rel_max(outs["s2d"][1], outs["direct"][1], rtol,
+                                 f"s2d stem conv weight gradient {c} "
+                                 f"channels {dtype}")
+            log(f"2c stem conv {c} channels {dtype}: s2d against direct, "
+                f"output {err:.3g}, weight gradient {gerr:.3g} of scale "
+                f"(held to {rtol:.3g})")
+            shape = (b, IMG[0], IMG[1], c)
+            entries.append(alt_entry(
+                "resnet18 encoder", shape, dtype, "forward+backward",
+                time_turns({s: (lambda m=m: m(x).backward(cot))
+                            for s, m in models.items()}), "direct"))
+            entries.append(alt_entry(
+                "stem conv", shape, dtype, "forward+backward",
+                time_turns({s: (lambda fn=fn: fn().backward(gy))
+                            for s, fn in stems.items()}), "direct"))
+    return entries
+
+
+def alt_knn(dev, g) -> list:
+    """The neighbour routes at the main shape (Q 4,096, N 20,000, D 200,
+    k 6): the blocked route's indices equal the ``full`` route's but at
+    counted near ties (within 1e-4 in float64 distances), its distances
+    within 1e-4 relative; then the fused route (K3, the default), ``full``
+    (K4 and a stable sort) and ``blocked`` timed."""
+    import torch
+    from srl_zoo_tpu_torch.ops.knn_topk import knn_topk_with_dist
+    nq, n, d, k = KNN_QUERIES, N_FRAMES, STATE_DIM, 6
+    q = torch.randn((nq, d), generator=g, device=dev)
+    refs = torch.randn((n, d), generator=g, device=dev)
+    bd, bi = knn_topk_with_dist(q, refs, k, impl="blocked")
+    fd, fi = knn_topk_with_dist(q, refs, k, impl="full")
+    rel = float(((bd - fd).abs() / fd.abs().clamp_min(1e-30)).max())
+    if not rel <= 1e-4:
+        raise AssertionError(f"blocked route: distances max rel err {rel}")
+    ties = near_tie_mismatches(q, refs, bi, fi, 1e-4)
+    log(f"2c knn blocked against full: max rel err {rel:.3g}, {ties} index "
+        "mismatches at near ties")
+    routes = {impl: (lambda impl=impl: knn_topk_with_dist(q, refs, k, impl))
+              for impl in ("auto", "full", "blocked")}
+    return [alt_entry("knn_topk", (nq, n, d, k), "float32", "forward",
+                      time_turns(routes), "auto")]
+
+
+def run_alternatives(dev, g) -> list:
+    """Phase 2c: each alternative formulation checked against the port's
+    and timed beside it; the records of the alternatives line."""
+    t0 = time.perf_counter()
+    entries = (alt_decoder(dev, g) + alt_pools(dev, g) + alt_stem(dev, g)
+               + alt_knn(dev, g))
+    log(f"phase 2c (the measured alternatives) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return entries
+
+
+# ---------------------------------------------------------------------------
+# phase 4d: the self-contained torch export
+# ---------------------------------------------------------------------------
+
+# phase 4's runs exported: configs 1, 2 and 5, the 6-channel config, mlp
+EXPORT_RUNS = ("autoencoder", "vae", "triplet", "multiview", "mlp")
+EXPORT_FRAMES = 256
+EXPORT_CHUNK = 32  # frames a call, StateEncoder's default max_batch
+EXPORT_REPEATS = 3
+# loads each artifact with torch alone (run outside the checkout) on the
+# card and encodes the frames in chunks; float32 convolutions in full
+# float32, as the port's entry points run them (TF32 would round at ~1e-3)
+ARTIFACT_LOADER = r"""
+import json, sys, time
+import numpy as np, torch
+torch.backends.cudnn.allow_tf32 = False
+jobs, chunk, repeats = json.loads(sys.argv[1])
+fps = {}
+for job in jobs:
+    enc = torch.jit.load(job["artifact"], map_location="cuda").eval()
+    obs = np.load(job["frames"])
+
+    def run():
+        with torch.no_grad():
+            return torch.cat([enc(torch.from_numpy(obs[s:s + chunk]).to(
+                "cuda").float()).cpu() for s in range(0, len(obs), chunk)])
+    np.save(job["states"], run().numpy())
+    t0 = time.perf_counter()
+    for _ in range(repeats):
+        run()
+    fps[job["artifact"]] = repeats * len(obs) / (time.perf_counter() - t0)
+loaded = [m for m in sys.modules if m.startswith("srl_zoo_tpu")]
+print(json.dumps({"fps": fps, "package_modules": loaded}))
+"""
+
+
+def run_export(runs: str) -> None:
+    """Phase 4d: phase 4's runs of EXPORT_RUNS exported as TorchScript
+    (``export_torch_encoder``, loading each run on the card) and the
+    triplet run's as a ``--state-dict`` file; a subprocess that imports
+    torch only, started outside the checkout, loads every artifact on the
+    card, asserts that no module of the port is loaded, and encodes
+    EXPORT_FRAMES of the run's uint8 frames (as float) in chunks of 32;
+    its states must equal the port's StateEncoder's on the card within
+    1e-4 of the largest |state|; frames/s of both are printed. ``runs``
+    holds phase 4's dataset (``data``) and run folders."""
+    import torch
+    from srl_zoo_tpu_torch.config import SRLConfig
+    from srl_zoo_tpu_torch.data.schema import load_dataset
+    from srl_zoo_tpu_torch.export.torch_export import export_torch_encoder
+    from srl_zoo_tpu_torch.inference import StateEncoder
+    t0 = time.perf_counter()
+    work = f"{runs}/export"
+    os.makedirs(work)
+    dataset = load_dataset(f"{runs}/data")
+    rows = np.arange(EXPORT_FRAMES)
+    jobs, frames_of = [], {}
+    for name in EXPORT_RUNS:
+        run = f"{runs}/{name}"
+        cfg = SRLConfig.load(run)
+        frames_of[name] = stacked_frames(dataset, rows, cfg)
+        np.save(f"{work}/{name}_frames.npy", frames_of[name])
+        jobs.append({"artifact": export_torch_encoder(run),
+                     "frames": f"{work}/{name}_frames.npy",
+                     "states": f"{work}/{name}_states.npy"})
+    triplet = f"{runs}/triplet"
+    sd_path = export_torch_encoder(triplet, f"{work}/triplet_sd.pt",
+                                   torchscript=False)
+    sd = torch.load(sd_path, weights_only=True)
+    enc = {k[len("encoder."):]: v for k, v in torch.load(
+        f"{triplet}/srl_model.pth", weights_only=True).items()
+        if k.startswith("encoder.")}
+    if "shift" in sd or "scale" in sd or sd.keys() != enc.keys() or not all(
+            torch.equal(v, enc[k]) for k, v in sd.items()) or \
+            "layer4.1.conv2.weight" not in sd:
+        raise AssertionError(f"--state-dict export of the triplet run: "
+                             f"keys {sorted(sd)[:8]}...")
+    log(f"4d: --state-dict of the triplet run: {len(sd)} tensors under "
+        "torchvision resnet18's keys, no normalizer, the run's weights")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run(
+        [sys.executable, "-c", ARTIFACT_LOADER, json.dumps(
+            [jobs, EXPORT_CHUNK, EXPORT_REPEATS])], cwd=work, env=env,
+        capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        raise AssertionError(f"artifact loader: {res.stdout}{res.stderr}")
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    if out["package_modules"]:
+        raise AssertionError(f"the artifacts' loader imported "
+                             f"{out['package_modules']}")
+    for name, job in zip(EXPORT_RUNS, jobs):
+        encoder = StateEncoder.load(f"{runs}/{name}")
+        want = encoder.encode(frames_of[name])
+        t1 = time.perf_counter()
+        for _ in range(EXPORT_REPEATS):
+            encoder.encode(frames_of[name])
+        fps = EXPORT_REPEATS * EXPORT_FRAMES / (time.perf_counter() - t1)
+        got = np.load(job["states"])
+        err = close_rel_max(torch.from_numpy(got), torch.from_numpy(want),
+                            1e-4, f"4d {name}: artifact against StateEncoder")
+        log(f"4d {name}: artifact (torch alone, on the card) against "
+            f"StateEncoder over {EXPORT_FRAMES} frames: {err:.3g} of the "
+            f"largest |state| (held to 1e-4); frames/s artifact "
+            f"{out['fps'][job['artifact']]:.1f}, StateEncoder {fps:.1f} "
+            f"(chunks of {EXPORT_CHUNK})")
+    log(f"phase 4d (torch export) in {time.perf_counter() - t0:.1f} s")
+
+
 def kernel_counters() -> dict:
     """Each kernel's wrapper by name: the launch counts live on them."""
     from srl_zoo_tpu_torch.ops import (fused_pool, gather_norm, knn_topk,
@@ -3148,6 +3623,20 @@ def data_layer_only(card: str) -> int:
     return 0
 
 
+def alternatives_only(card: str) -> int:
+    """Phase 2c alone: its alternatives line and the card."""
+    import torch
+    from srl_zoo_tpu_torch.utils.device import (resolve_device,
+                                                use_strict_float32)
+    dev = resolve_device(None)
+    use_strict_float32()
+    entries = run_alternatives(dev, torch.Generator(device=dev).manual_seed(
+        SEED))
+    print(json.dumps({"alternatives": entries}))
+    print(card)
+    return 0
+
+
 def run_tooling(data_folder: str, work: str, dev, counters) -> dict:
     t0 = time.perf_counter()
     launches = run_profile(data_folder, f"{work}/profiled", counters)
@@ -3191,11 +3680,13 @@ def main(argv) -> int:
     tree = seeds = None
     data_only = argv == ["--data-layer"]
     dist_only = argv == ["--dist-tooling"]
-    if argv and not (data_only or dist_only):
+    alt_only = argv == ["--alternatives"]
+    if argv and not (data_only or dist_only or alt_only):
         if len(argv) != 2 or argv[0] not in ("--pools-of", "--step-seeds") \
                 or argv[0] == "--step-seeds" and not argv[1].isdigit():
             print("usage: chip_smoke.py [--pools-of CHECKOUT | --step-seeds "
-                  "N | --data-layer | --dist-tooling]", file=sys.stderr)
+                  "N | --data-layer | --dist-tooling | --alternatives]",
+                  file=sys.stderr)
             return 2
         if argv[0] == "--step-seeds":
             seeds = int(argv[1])
@@ -3237,6 +3728,8 @@ def main(argv) -> int:
             return data_layer_only(card)
         if dist_only:
             return dist_tooling_only(card)
+        if alt_only:
+            return alternatives_only(card)
 
         from srl_zoo_tpu_torch.checkpoint import save_srl_model
         from srl_zoo_tpu_torch.config import SRLConfig
@@ -3282,6 +3775,7 @@ def main(argv) -> int:
         knn_blocks = check_knn_sharded(dev, g, counters)
         log(f"phase 2b (K3 over {KNN_SHARDS} reference blocks) in "
             f"{time.perf_counter() - t0:.1f} s")
+        alternatives = run_alternatives(dev, g)
 
         t0 = time.perf_counter()
         cfg = SRLConfig(state_dim=STATE_DIM, img_height=IMG[0],
@@ -3346,6 +3840,7 @@ def main(argv) -> int:
                                  if "path_to_dae" in model_kw else None)
                 log(f"{name}: training profile in "
                     f"{time.perf_counter() - t0:.1f} s")
+            run_export(tmp)
 
             t0 = time.perf_counter()
             data = run_data_layer(f"{tmp}/data", f"{tmp}/data_layer", dev,
@@ -3394,6 +3889,7 @@ def main(argv) -> int:
                                 "bound_by": by,
                                 "library_ms": s.get("library_ms")})
     print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"alternatives": alternatives}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,6 +16,13 @@ permuted to (in, out, kh, kw) and flipped on both spatial axes
 (:func:`deconv_weight_from_flax`); both give 2H x 2W. The deconvolutions
 keep their bias, as flax's do by default.
 
+``deconv`` selects how each deconvolution runs, as the JAX module's field
+of that name does: "conv_transpose" (the default, cuDNN's transposed
+convolution) or "subpixel" (one stride-1 convolution and a depth-to-space,
+ops/subpixel.py). Both read the same ConvTranspose2d weight and bias, so
+one state dict loads into either; chip_smoke.py phase 2c measures them
+against each other (PERF.md §6).
+
 DenseDecoder, the decoder of the mlp and linear model types:
 
     Dense(state slice -> 64) -> relu -> Dense(64 -> H W C) -> reshape NHWC
@@ -38,10 +45,14 @@ from torch import nn
 
 from srl_zoo_tpu_torch.models.batchnorm import BatchNorm
 from srl_zoo_tpu_torch.models.mlp import MLP
-from srl_zoo_tpu_torch.models.precision import at_least_f32, deconv, dense
+from srl_zoo_tpu_torch.models.precision import at_least_f32, dense
+from srl_zoo_tpu_torch.models.precision import deconv as conv_transpose
+from srl_zoo_tpu_torch.ops.subpixel import subpixel_deconv
 
 WIDTHS = (64, 64, 32, 16)
 SEED_CHANNELS = 64
+# the formulations of a deconvolution, each (layer, x, compute dtype) -> y
+DECONVS = {"conv_transpose": conv_transpose, "subpixel": subpixel_deconv}
 
 
 def deconv_weight_from_flax(kernel: torch.Tensor) -> torch.Tensor:
@@ -53,9 +64,14 @@ def deconv_weight_from_flax(kernel: torch.Tensor) -> torch.Tensor:
 class CNNDecoder(nn.Module):
     def __init__(self, in_dim: int, img_height: int, img_width: int,
                  out_channels: int = 3, bn_momentum: float = 0.9,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 deconv: str = "conv_transpose"):
         super().__init__()
+        if deconv not in DECONVS:
+            raise ValueError(f"deconv must be one of {tuple(DECONVS)}, "
+                             f"got {deconv!r}")
         self.compute_dtype = dtype
+        self._deconv = DECONVS[deconv]
         self.h0, self.w0 = img_height // 32, img_width // 32
         if self.h0 * 32 != img_height or self.w0 * 32 != img_width:
             raise ValueError("CNNDecoder needs image sides divisible by 32, "
@@ -81,8 +97,9 @@ class CNNDecoder(nn.Module):
         x = x.reshape(z.shape[0], self.h0, self.w0, SEED_CHANNELS
                       ).permute(0, 3, 1, 2)
         for layer, bn in zip(self.deconvs, self.bns):
-            x = torch.relu(bn(deconv(layer, x, dt)))
-        return torch.tanh(self.deconvs[-1](at_least_f32(x)))
+            x = torch.relu(bn(self._deconv(layer, x, dt)))
+        return torch.tanh(self._deconv(self.deconvs[-1], at_least_f32(x),
+                                       None))
 
 
 class DenseDecoder(MLP):

@@ -19,14 +19,19 @@ wrapper sizes the split from the kernel's occupancy on the card
 ``"pallas_t"`` take the fused kernel (one CUDA kernel serves the two TPU
 layouts). ``"full"`` writes the (Q, N) matrix with the pairwise kernel
 (K4, ops/pairwise.py) and keeps each row's k smallest with a stable sort,
-ties to the lowest index as ``lax.top_k`` gives them.
+ties to the lowest index as ``lax.top_k`` gives them. ``"blocked"``
+(:func:`knn_topk_blocked`, plain tensor code on either device) walks the
+references in tiles of ``BLOCK_TILE`` rows, keeps each tile's k smallest
+and merges them into a running best k: the (Q, N) matrix is never whole,
+one (Q, tile) block at a time is. chip_smoke.py phase 2c measures it
+against the other two routes (PERF.md §6).
 
 ``knn_topk_sharded`` (port of ``srl_zoo_tpu/ops/knn_topk.py``
 ``knn_topk_sharded``) splits the references over the ranks of a process
-group (parallel/mesh.py): each rank runs the kernel on its block, offsets
-its indices, and the ranks' (Q, k) candidate lists, all-gathered, are
-merged into the final k (``merge_topk``, which takes any list of blocks,
-so one card can run it over several).
+group (parallel/mesh.py): each rank runs a route (the kernel by default)
+on its block, offsets its indices, and the ranks' (Q, k) candidate
+lists, all-gathered, are merged into the final k (``merge_topk``, which
+takes any list of blocks, so one card can run it over several).
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from srl_zoo_tpu_torch.ops.pairwise import (pairwise_sqdist,
 MAX_K = 64
 FUSED_IMPLS = ("auto", "pallas", "pallas_t")
 _TQ, _TR = 64, 256  # query and reference tile of the kernel
+BLOCK_TILE = 2048  # reference rows a step of the blocked route
 
 
 def knn_topk_plain(q: torch.Tensor, refs: torch.Tensor, k: int,
@@ -63,6 +69,33 @@ def _smallest_k(d2: torch.Tensor, k: int):
     column."""
     d, i = torch.sort(d2, dim=1, stable=True)
     return d[:, :k], i[:, :k]
+
+
+def knn_topk_blocked(q: torch.Tensor, refs: torch.Tensor, k: int):
+    """(dist, idx) (Q, k) by the blocked route (port of JAX's
+    ``_topk_blocked``): for each tile of ``BLOCK_TILE`` references, the
+    squared distances max(|q|^2 + |r|^2 - 2 q.r, 0) in float32 and the
+    tile's k smallest; then the k smallest of the running best (at first
+    k entries of the float32 maximum, index -1) followed by them. Every
+    selection is a stable sort, so ties go to the running best, that is
+    to the lowest column, as ``lax.top_k`` gives them."""
+    q = q.to(torch.float32)
+    refs = refs.to(torch.float32)
+    qq = (q * q).sum(dim=1, keepdim=True)
+    best_d = torch.full((q.shape[0], k), torch.finfo(torch.float32).max,
+                        device=q.device)
+    best_i = torch.full((q.shape[0], k), -1, dtype=torch.int64,
+                        device=q.device)
+    for off in range(0, refs.shape[0], BLOCK_TILE):
+        rt = refs[off:off + BLOCK_TILE]
+        d2 = torch.clamp(qq + (rt * rt).sum(dim=1)[None, :] - 2.0 * (q @ rt.T),
+                         min=0.0)
+        # a last tile of fewer than k rows gives fewer candidates: JAX's
+        # padding columns would lose to the running best anyway
+        td, ti = _smallest_k(d2, k)
+        best_d, order = _smallest_k(torch.cat([best_d, td], dim=1), k)
+        best_i = torch.gather(torch.cat([best_i, ti + off], dim=1), 1, order)
+    return best_d, best_i
 
 
 def split_plan(q_tiles: int, r_tiles: int, sms: int,
@@ -98,12 +131,9 @@ def knn_topk_with_dist(q: torch.Tensor, refs: torch.Tensor, k: int,
     The fused route launches its kernel for CUDA tensors (k <= ``MAX_K``)
     and takes :func:`knn_topk_plain` for CPU tensors (any k); the ``full``
     route goes through :func:`pairwise_sqdist`, which does the same per
-    device. Any other device raises."""
-    if impl == "blocked":
-        raise NotImplementedError(
-            "knn_topk impl 'blocked' is not ported yet: ROADMAP.md queue A "
-            "item 10 'the measured alternatives'")
-    if impl not in FUSED_IMPLS + ("full",):
+    device; the ``blocked`` route is tensor code on either device. Any
+    other device raises."""
+    if impl not in FUSED_IMPLS + ("full", "blocked"):
         raise ValueError(f"unknown impl {impl!r}")
     if not 1 <= k <= refs.shape[0]:
         raise ValueError(f"k={k} outside [1, {refs.shape[0]} reference "
@@ -112,6 +142,8 @@ def knn_topk_with_dist(q: torch.Tensor, refs: torch.Tensor, k: int,
         raise ValueError(f"knn_topk: q on {q.device}, refs on {refs.device}")
     if impl == "full":
         return _smallest_k(pairwise_sqdist(q, refs), k)
+    if impl == "blocked":
+        return knn_topk_blocked(q, refs, k)
     if q.device.type == "cpu":
         return knn_topk_plain(q, refs, k)
     if q.device.type != "cuda":
@@ -189,17 +221,18 @@ def merge_topk(parts, k: int):
     return d[:, :k], torch.gather(i, 1, order[:, :k])
 
 
-def knn_topk_sharded(q: torch.Tensor, refs: torch.Tensor, k: int):
-    """(dist, idx) (Q, k) of ``knn_topk_with_dist(q, refs, k)``, with the
-    references split over the ranks: every rank passes the same ``q`` and
-    ``refs``, runs the kernel on its block, and the ranks' candidates are
-    all-gathered and merged. With one rank, or blocks of fewer than k
-    rows, it is the plain call."""
+def knn_topk_sharded(q: torch.Tensor, refs: torch.Tensor, k: int,
+                     impl: str = "auto"):
+    """(dist, idx) (Q, k) of ``knn_topk_with_dist(q, refs, k, impl)``, with
+    the references split over the ranks: every rank passes the same ``q``
+    and ``refs``, runs the route ``impl`` on its block, and the ranks'
+    candidates are all-gathered and merged. With one rank, or blocks of
+    fewer than k rows, it is the plain call."""
     w = mesh.world()
     if w == 1 or refs.shape[0] // w < k:
-        return knn_topk_with_dist(q, refs, k)
+        return knn_topk_with_dist(q, refs, k, impl)
     block, start = reference_block(refs, w, mesh.rank())
-    d, i = knn_topk_with_dist(q, block, k)
+    d, i = knn_topk_with_dist(q, block, k, impl)
     ds = mesh.all_gather_rows(d[None])
     is_ = mesh.all_gather_rows((i + start)[None])
     return merge_topk(list(zip(ds, is_)), k)

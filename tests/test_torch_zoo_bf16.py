@@ -153,6 +153,7 @@ def test_bf16_encoder_forward_matches_jax(name, train, two_pass_bn_variance):
     the conv encoders the pools' inputs: the BatchNorm outputs, bfloat16
     and channels_last (the pool reads them in place)."""
     from srl_zoo_tpu_torch.models.encoders import make_encoder
+    from srl_zoo_tpu_torch.models.resnet import ResNet18
     model_type = name.split("-")[0]
     jmodel = _jax_encoder(name, jnp.bfloat16)
     rng = np.random.RandomState(21)
@@ -179,7 +180,10 @@ def test_bf16_encoder_forward_matches_jax(name, train, two_pass_bn_variance):
     sd = {k[len("encoder."):]: v for k, v in sd.items()}
 
     def port(dtype):
-        enc = make_encoder(model_type, 6, 3, PX, PX, dtype=dtype)
+        if model_type == "resnet":  # with the JAX model's stem
+            enc = ResNet18(6, 3, dtype=dtype, stem=name.split("-")[1])
+        else:
+            enc = make_encoder(model_type, 6, 3, PX, PX, dtype=dtype)
         enc.load_state_dict(sd)
         return enc.train(train)
     enc = port(torch.bfloat16)

@@ -104,7 +104,6 @@ def test_knn_topk_full_gives_ties_to_the_lowest_index():
 
 
 @pytest.mark.parametrize("impl,error,match", [
-    ("blocked", NotImplementedError, "ROADMAP.md queue A item 10"),
     ("xla", ValueError, "unknown impl 'xla'"),
 ])
 def test_knn_topk_names_what_it_does_not_run(impl, error, match):

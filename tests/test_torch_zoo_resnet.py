@@ -7,9 +7,10 @@ Inputs come from numpy with a seed, or from the shared 32 px two-view
 bridged into the port. Tolerances, each with its reason:
 
 * ResNet-18 forward: within 1e-4 of the output's largest magnitude (f32
-  convolutions sum in another order; JAX's "s2d" stem regroups the stem
-  convolution, so it rounds otherwise again); BatchNorm running
-  statistics within 1e-5 of their largest.
+  convolutions sum in another order; each package's "s2d" stem regroups
+  the stem convolution, which the port's cuDNN or CPU convolution sums
+  in its own order again); BatchNorm running statistics within 1e-5 of
+  their largest.
 * ResNet-18 gradients: each within 1e-4 of its tensor's largest magnitude
   (backward sums compound the forward's rounding).
 * Stem pool gradient: exact. Integer inputs and cotangents make every sum
@@ -55,12 +56,13 @@ def _jax_resnet(stem: str, channels: int = 3, seed: int = 0):
     return model, jax.device_get(variables["params"]), stats
 
 
-def _port_resnet(params, stats, channels: int = 3) -> ResNet18:
+def _port_resnet(params, stats, channels: int = 3,
+                 stem: str = "direct") -> ResNet18:
     """The port's ResNet18 with the JAX weights, through the bridge."""
     sd, skipped = bridge.state_dict_from_jax({"encoder": params},
                                              {"encoder": stats})
     assert skipped == []
-    model = ResNet18(STATE_DIM, channels)
+    model = ResNet18(STATE_DIM, channels, stem=stem)
     model.load_state_dict({k[len("encoder."):]: v for k, v in sd.items()})
     return model
 
@@ -69,9 +71,10 @@ def _port_resnet(params, stats, channels: int = 3) -> ResNet18:
 @pytest.mark.parametrize("train", [True, False])
 def test_resnet18_matches_jax(stem, train, two_pass_bn_variance):
     """Output, input gradient, every parameter's gradient and (train mode)
-    the updated BatchNorm statistics of one forward + backward."""
+    the updated BatchNorm statistics of one forward + backward, each
+    package with the same stem."""
     jmodel, params, stats = _jax_resnet(stem)
-    model = _port_resnet(params, stats).train(train)
+    model = _port_resnet(params, stats, stem=stem).train(train)
     rng = np.random.RandomState(21)
     x = rng.uniform(-1, 1, (8, PX, PX, 3)).astype(np.float32)
     cot = rng.randn(8, STATE_DIM).astype(np.float32)

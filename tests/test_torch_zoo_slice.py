@@ -315,7 +315,8 @@ def test_port_imports_neither_jax_nor_the_jax_package(port_run,
         "assert 'srl_zoo_tpu_torch.pipeline' in names, names\n"
         "assert 'srl_zoo_tpu_torch.plotting.raster' in names, names\n"
         "for new in ('data.synthetic', 'parallel.mesh', 'ops.sharded_store',\n"
-        "            'utils.doctor', 'utils.profiling'):\n"
+        "            'utils.doctor', 'utils.profiling', 'ops.pooling',\n"
+        "            'ops.subpixel', 'export.torch_export'):\n"
         "    assert 'srl_zoo_tpu_torch.' + new in names, names\n"
         "from srl_zoo_tpu_torch.evaluation.knn import knn_mse\n"
         "from srl_zoo_tpu_torch.inference import StateEncoder\n"
