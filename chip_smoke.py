@@ -8,6 +8,7 @@ one NVIDIA GPU.
     python3 chip_smoke.py --data-layer
     python3 chip_smoke.py --dist-tooling
     python3 chip_smoke.py --alternatives
+    python3 chip_smoke.py --epoch-runner
 
 Needs one CUDA card, nvcc (CUDA_HOME or PATH) and this checkout; it builds
 the kernels of ``srl_zoo_tpu_torch/csrc`` itself. Phases, each of which
@@ -128,7 +129,8 @@ prints its wall time:
    GTC and plots ``states.png`` and ``correlation.png`` (config 1 also
    ``plots/epoch_<e>.png``, ``latest.png`` and ``live.html``, and its
    ``checkpoints/state_latest.pth`` must load at the run's epoch and
-   step); KNN-MSE of
+   step; every run's cached phases must have run through the epoch
+   runner, by replay, and no step through the per-step loop); KNN-MSE of
    the exported states is then scored through both neighbour routes (K3
    and K4), and the server answers one round of 8 concurrent frames from
    each ResNet run. Launch counts are zeroed just before and read just
@@ -188,6 +190,28 @@ prints its wall time:
    the card and encodes 256 of the run's uint8 frames as float, with no
    module of the port loaded; its states within 1e-4 of the largest
    |state| of the port's StateEncoder on the card, and frames/s of both.
+4e. The whole-epoch runner (``training/epoch.py``: the cached phases as
+   replays of CUDA graphs of the train step) at the same width (224x224x3,
+   state_dim 200, batch 32) on phase 4's dataset, both views resident:
+   configs 1 and 5 in f32 and bf16, ``dae`` and config 2 (random draws in
+   the step), config 3 (pairs), ``autoencoder --grad-accum 4`` (two
+   graphs) and config 3's hot phase on a hybrid store of 2,048 rows (by
+   slot). For each, from the same seeded state: 8 steps of the per-step
+   ``train_step`` against a runner phase whose first step (the first 4
+   with ``--grad-accum 4``) runs eagerly before the capture and whose
+   next 8 steps are replays: every per-step metric, parameter, buffer,
+   Adam state and the generator's state (so its draws) equal bit for bit,
+   or, where capture and eager differ, within 1e-6 of the tensor's
+   largest magnitude (the differing tensors printed); a phase of 8
+   replays under ``torch.cuda.set_sync_debug_mode("error")``; a traced
+   phase of 8 replays whose K1f, K1b and K2 launches in the trace equal
+   the launch counters (captured launches once per replay); and two
+   windows of 24 steps each way, in turns: images/s, host microseconds a
+   step (the host clock before the synchronise) and the device's idle
+   share of a step (1 - the traced device time a step over the untraced
+   step time). One ``{"epoch_runner": [...]}`` line with the card. Its
+   launches are checks, on no main path: the kernels line leaves them
+   out, as it leaves out phases 2c and 4d.
 4b. The data layer at the same width (224x224x3, state_dim 200, batch
    32). 1,024 frames of phase 4's scene (both views, four episodes) are
    recorded as JPEG episodes with ``DatasetRecorder`` and preprocessed
@@ -276,6 +300,9 @@ phase 4b alone, on a freshly written phase 4 dataset.
 
 With ``--alternatives`` it runs phase 2c alone and prints its line and
 the card.
+
+With ``--epoch-runner`` it runs phase 4e alone, on a freshly written
+phase 4 dataset, and prints the card.
 
 With ``--dist-tooling`` it runs phases 2b, 4a and 4c alone, on a freshly
 written phase 4 dataset.
@@ -2106,6 +2133,7 @@ def run_training(data_folder: str, run_dir: str, dev, counters, name: str,
     gt = dataset.ground_truth_states
     plots = name == "autoencoder"
     ckpt_s, undo = timed_checkpoints()
+    learners, undo_learners = capture_learners(time_phases=False)
     # --- the training path, with the launch counts zeroed just before -----
     zero_counts(counters)
     t0 = time.perf_counter()
@@ -2117,6 +2145,7 @@ def run_training(data_folder: str, run_dir: str, dev, counters, name: str,
                         *(["--plot-every", "1"] if plots else [])])
     finally:
         undo()
+        undo_learners()
     train_s = time.perf_counter() - t0
     states = np.load(os.path.join(run_dir, "states_rewards.npz"))["states"]
     score, queries, _ = knn_mse(states, gt, k=5, n_samples=KNN_QUERIES,
@@ -2143,9 +2172,17 @@ def run_training(data_folder: str, run_dir: str, dev, counters, name: str,
             raise AssertionError("server thread did not stop")
     launches = read_counts(counters, f"{name} training path")
     # --- end of the training path -----------------------------------------
+    runner = learners[-1].runner
     log(f"{name}: train CLI ({epochs} epochs, export, GTC, plots) in "
         f"{train_s:.1f} s; main thread inside the checkpoint calls by "
-        f"epoch: {[round(v, 6) for v in ckpt_s]} s")
+        f"epoch: {[round(v, 6) for v in ckpt_s]} s; cached phases by the "
+        f"epoch runner: {runner.counts()}, {learners[-1].loop_steps} "
+        "steps of the per-step loop")
+    if not (cfg.only_random_features or runner.replays > 0
+            and learners[-1].loop_steps == 0):
+        raise AssertionError(f"{name}: the whole store's phases did not run "
+                             f"by replay: {runner.counts()}, "
+                             f"{learners[-1].loop_steps} per-step steps")
     if cfg.only_random_features:
         # nothing trains: no backward, no checkpoint, no loss history
         check_random_features(run_dir, cfg)
@@ -2346,13 +2383,32 @@ def check_streamed_no_sync(data_folder: str, dev) -> None:
 
 
 def k2_by_route(learner_mod):
-    """Wrap the learner's train and eval steps to split K2's launches by
-    the kind of batch a step took (``streamed``: uint8 pixels; ``slot``:
-    a hybrid store's slots; ``index``: the whole store's rows). Returns
-    the counts and the undo."""
+    """Wrap the learner's train and eval steps, and the epoch runner's
+    phases (a cached phase's, whose kind the stacked batches say), to
+    split K2's launches by the kind of batch a step took (``streamed``:
+    uint8 pixels; ``slot``: a hybrid store's slots; ``index``: the whole
+    store's rows). Returns the counts and the undo."""
     from srl_zoo_tpu_torch.ops.gather_norm import gather_normalize
+    from srl_zoo_tpu_torch.training.epoch import EpochRunner
     counts = {"streamed": 0, "slot": 0, "index": 0}
-    real = {f: getattr(learner_mod, f) for f in ("train_step", "eval_step")}
+    real = {f: getattr(learner_mod, f) for f in ("train_step", "eval_step",
+                                                  "stack_batches")}
+    real_phase = {f: getattr(EpochRunner, f) for f in ("train_epoch",
+                                                        "eval_epoch")}
+    stacked_route = ["index"]
+
+    def stack(batches, *args):
+        stacked_route[0] = "slot" if "cache_slots" in batches[0] \
+            else "index"
+        return real["stack_batches"](batches, *args)
+
+    def phase(fn):
+        def run(*args, **kw):
+            before = gather_normalize.launches
+            out = fn(*args, **kw)
+            counts[stacked_route[0]] += gather_normalize.launches - before
+            return out
+        return run
 
     def split(fn, batch_at):
         def step(*args, **kw):
@@ -2367,22 +2423,27 @@ def k2_by_route(learner_mod):
 
     learner_mod.train_step = split(real["train_step"], 3)
     learner_mod.eval_step = split(real["eval_step"], 2)
+    learner_mod.stack_batches = stack
+    for f, fn in real_phase.items():
+        setattr(EpochRunner, f, phase(fn))
 
     def undo():
         for f, fn in real.items():
             setattr(learner_mod, f, fn)
+        for f, fn in real_phase.items():
+            setattr(EpochRunner, f, fn)
     return counts, undo
 
 
-def capture_learners():
-    """Hook ``SRL4robotics.learn`` to keep each learner the CLI builds and
-    to turn its synchronised phase timing on. Returns the list and the
-    undo."""
+def capture_learners(time_phases: bool = True):
+    """Hook ``SRL4robotics.learn`` to keep each learner the CLI builds and,
+    with ``time_phases``, to turn its synchronised phase timing on.
+    Returns the list and the undo."""
     from srl_zoo_tpu_torch.training.learner import SRL4robotics
     learners, real = [], SRL4robotics.learn
 
     def learn(self, *args, **kw):
-        self.time_phases = True
+        self.time_phases = time_phases
         learners.append(self)
         return real(self, *args, **kw)
     SRL4robotics.learn = learn
@@ -3007,6 +3068,415 @@ def group_cost(timer: "_StepTimer", grouped: bool) -> dict:
         with patch():
             out[name] = timer.ms()
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4e: the whole-epoch runner (CUDA-graph replays of the cached steps)
+# ---------------------------------------------------------------------------
+
+# name, --losses tokens and config fields: configs 1 and 5 in f32 and bf16,
+# the DAE and config 2's VAE (random draws in the step), config 3's priors
+# (pairs), ``--grad-accum 4`` (two graphs) and a hybrid store's hot phase
+# (config 3 by slot, HYBRID_ROWS resident)
+EPOCH_CASES = (
+    ("autoencoder", ("autoencoder",), {}),
+    ("autoencoder-bf16", ("autoencoder",), BF16),
+    ("triplet", ("triplet",), RESNET_VIEWS),
+    ("triplet-bf16", ("triplet",), {**RESNET_VIEWS, **BF16}),
+    ("dae", ("dae",), {}),
+    ("vae", ("vae",), {"beta": 0.5}),
+    ("priors", ("priors",), {}),
+    ("grad-accum", ("autoencoder",), {"grad_accum": 4}),
+    ("hybrid", ("priors",), {}),
+)
+EPOCH_REPLAYS = 8  # replayed steps held against the eager ones
+EPOCH_TIMED = 24  # steps of a timed window (two windows each way, in turns)
+# where capture and eager are shown to differ: the allowed deviation, of a
+# tensor's largest magnitude
+EPOCH_TOL = 1e-6
+
+
+def _batch_pool(dataset, cfg, slot_map=None, rows=None):
+    """An endless cycle of a training epoch's index batches (the loader's,
+    at batch 32), by store slot with ``slot_map``."""
+    import itertools
+    from srl_zoo_tpu_torch.data.loader import DataLoader, batch_flags
+    rows = np.arange(dataset.n_samples - 1) if rows is None else rows
+    loader = DataLoader(dataset, rows, TRAIN_BATCH, seed=SEED,
+                        slot_map=slot_map, **batch_flags(cfg))
+    return itertools.cycle(list(loader))
+
+
+def _take(pool, n: int) -> list:
+    return [next(pool) for _ in range(n)]
+
+
+def _deviations(pairs) -> list:
+    """[(what, deviation)] of the pairs (what, eager, replayed) that are
+    not equal bit for bit: the largest difference over the eager tensor's
+    largest magnitude."""
+    import torch
+    out = []
+    for what, a, b in pairs:
+        if torch.equal(a, b):
+            continue
+        a, b = a.detach().double(), b.detach().double()
+        out.append((what, float((a - b).abs().max()
+                                / a.abs().max().clamp_min(1e-30))))
+    return out
+
+
+def _recorded_step(model, run):
+    """``run()`` with every module's forward output and every parameter's
+    incoming gradient recorded (clones: inside a capture the clones are
+    graph tensors that the replays fill). Returns
+    [(what, tensor)] in the order they were computed."""
+    import torch
+    seen, handles = [], []
+
+    def keep(what, t):
+        if isinstance(t, torch.Tensor):
+            seen.append((what, t.detach().clone()))
+        elif isinstance(t, (tuple, list)):
+            for i, v in enumerate(t):
+                keep(f"{what}[{i}]", v)
+        elif isinstance(t, dict):
+            for k, v in t.items():
+                keep(f"{what}.{k}", v)
+    for n, m in model.named_modules():
+        handles.append(m.register_forward_hook(
+            lambda mod, args, out, n=n: keep(
+                f"forward of {n or 'model'} ({type(mod).__name__})", out)))
+    for n, p in model.named_parameters():
+        handles.append(p.register_hook(
+            lambda g, n=n: keep(f"gradient of {n}", g)))
+    try:
+        run()
+    finally:
+        for h in handles:
+            h.remove()
+    return seen
+
+
+def locate_difference(dev, cfg, store, batches, n_rows: int) -> str:
+    """The first operation whose result differs between the eager step and
+    the replay of the first replayed step (``batches`` holds the eager
+    steps before the capture and that step): each module's forward output
+    and each parameter's incoming gradient, in the order the step
+    computes them, then the parameters after it."""
+    import torch
+    from srl_zoo_tpu_torch.training.epoch import EpochRunner
+    from srl_zoo_tpu_torch.training.learner import stack_batches
+    from srl_zoo_tpu_torch.training.state import make_model, make_optimizer
+    from srl_zoo_tpu_torch.training.train_step import train_step
+
+    def fresh():
+        model = make_model(cfg, dev)
+        return (model, make_optimizer(cfg, model),
+                torch.Generator(device=dev).manual_seed(SEED))
+    m1, o1, g1 = fresh()
+    for b in batches[:-1]:
+        train_step(m1, o1, store, b, g1)
+    eager = _recorded_step(m1, lambda: train_step(m1, o1, store,
+                                                  batches[-1], g1))
+    m2, o2, g2 = fresh()
+    runner = EpochRunner(m2, o2, g2)
+    real = runner._capture
+    replayed = []
+
+    def capture(prog, body, kinds):
+        replayed[:] = _recorded_step(m2, lambda: real(prog, body, kinds))
+    runner._capture = capture
+    runner.train_epoch(store, stack_batches(batches, cfg, n_rows))
+    torch.cuda.synchronize()
+    # with --grad-accum the capture records both graphs, the replayed
+    # (accumulating) one first
+    if len(replayed) < len(eager):
+        return (f"the replay recorded {len(replayed)} results, eager "
+                f"{len(eager)}")
+    for (what, a), (_, b) in zip(eager, replayed):
+        dv = _deviations([(what, a, b)])
+        if dv:
+            return f"{what}: {dv[0][1]:.3g} of its scale"
+    dv = _deviations([(f"parameter {n}", p, q) for (n, p), (_, q) in zip(
+        m1.named_parameters(), m2.named_parameters())])
+    return f"{dv[0][0]} after the step: {dv[0][1]:.3g} of its scale" if dv \
+        else "none (the replayed step equals the eager one)"
+
+
+def _trace_launches(prof) -> dict:
+    """Launches of K1f, K1b and K2 in a torch.profiler trace, by wrapper."""
+    import torch
+    evs = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {k: sum(e.count for e in evs if name in e.key)
+            for k, name in PROFILED.items()}
+
+
+def _device_busy_ms(prof) -> float:
+    """Summed device time of every kernel in a trace (one stream: the
+    kernels do not overlap). Ranges that show on the device as spans (the
+    profiler's step annotations, the optimizer's "Optimizer.step" range)
+    cover idle gaps and their kernels are listed on their own, so they are
+    left out, as ``profile_training`` leaves them out."""
+    import torch
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith(("Optimizer.", "ProfilerStep"))
+               ) / 1e3
+
+
+def _compare_runs(name, cfg, store, batches, n_rows, warm, runner, eager,
+                  got, ref, run) -> tuple:
+    """(deviations, first difference) of a runner phase against the same
+    steps run eagerly from the same state: every per-step metric,
+    parameter, buffer, Adam state and the generator's state."""
+    import torch
+    (m1, o1, g1), (m2, o2, g2) = ref, run
+    if (runner.eager_steps, runner.replays, runner.captures) != (
+            warm, EPOCH_REPLAYS, 1 + (warm > 1)):
+        raise AssertionError(f"{name}: runner counts {runner.counts()}")
+    per_step = {k: torch.stack([m[k] for m in eager]).float() for k in got}
+    pairs = [(f"metric {k}", per_step[k], got[k]) for k in got]
+    pairs += [(f"parameter {n}", p, q) for (n, p), (_, q) in zip(
+        m1.named_parameters(), m2.named_parameters())]
+    pairs += [(f"buffer {n}", p, q) for (n, p), (_, q) in zip(
+        m1.named_buffers(), m2.named_buffers())]
+    for i, (a1, a2) in enumerate(zip(o1.adams, o2.adams)):
+        for p1, p2 in zip(a1.param_groups[0]["params"],
+                          a2.param_groups[0]["params"]):
+            for k, v in a1.state[p1].items():
+                pairs.append((f"adam {i} {k}", v, a2.state[p2][k]))
+    pairs.append(("generator state", g1.get_state(), g2.get_state()))
+    differ = _deviations(pairs)
+    if not differ:
+        return differ, None
+    # the step at which the metrics first part, and the operation
+    steps = [i for i in range(len(batches)) if any(
+        not torch.equal(per_step[k][i], got[k][i]) for k in got)]
+    first = (f"metrics first differ at step {steps[0] if steps else None} "
+             f"of {len(batches)} ({warm} eager); first differing "
+             "operation of the first replay: " + locate_difference(
+                 next(m2.parameters()).device, cfg, store,
+                 batches[:warm + 1], n_rows))
+    log(f"{name}: replay differs from eager: {first}; {len(differ)} "
+        f"tensors, largest {sorted(differ, key=lambda d: -d[1])[:6]}")
+    return differ, first
+
+
+def epoch_case(dev, dataset, views, counters, name: str, tokens,
+               kw, card: str) -> dict:
+    """One case of phase 4e (see the module note) on the card ``card``
+    (nvidia-smi's name and power limit, printed beside the readings);
+    returns its readings."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from srl_zoo_tpu_torch.data.device_cache import store_rows
+    from srl_zoo_tpu_torch.training.epoch import EpochRunner
+    from srl_zoo_tpu_torch.training.learner import stack_batches
+    from srl_zoo_tpu_torch.training.state import make_model, make_optimizer
+    from srl_zoo_tpu_torch.training.train_step import train_step
+    cfg = train_config(tokens, TRAIN_BATCH, kw)
+    if name == "hybrid":
+        from srl_zoo_tpu_torch.data.hybrid import RotatingHotStore
+        hot = RotatingHotStore(dataset, dev, cfg, HYBRID_ROWS,
+                               second_view=cfg.needs_second_view)
+        store = hot.cache
+        rows = np.arange(dataset.n_samples - 1)
+        pool = _batch_pool(dataset, cfg, hot.slot_of,
+                           rows[hot.trainable_mask(rows)])
+    else:
+        store = views
+        pool = _batch_pool(dataset, cfg)
+    n_rows = store_rows(store)
+
+    def fresh():
+        model = make_model(cfg, dev)
+        return (model, make_optimizer(cfg, model),
+                torch.Generator(device=dev).manual_seed(SEED))
+    warm = cfg.grad_accum  # eager steps before the capture
+    batches = _take(pool, warm + EPOCH_REPLAYS)
+    # --- eager (today's per-step train_step) against the runner, on
+    # cuDNN's deterministic algorithms: its default weight gradients add
+    # in a varying order, and two eager runs then part (phase 4c) --------
+    torch.backends.cudnn.deterministic = True
+    try:
+        m1, o1, g1 = fresh()
+        eager = [train_step(m1, o1, store, b, g1) for b in batches]
+        m2, o2, g2 = fresh()
+        runner = EpochRunner(m2, o2, g2)
+        got = runner.train_epoch(store, stack_batches(batches, cfg,
+                                                      n_rows))
+        torch.cuda.synchronize()
+        differ, first = _compare_runs(name, cfg, store, batches, n_rows,
+                                      warm, runner, eager, got,
+                                      (m1, o1, g1), (m2, o2, g2))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    # --- the rest on cuDNN's default algorithms, as the learner runs:
+    # a runner that captured on them, warmed by one phase ----------------
+    m1, o1, g1 = fresh()
+    for b in _take(pool, warm):
+        train_step(m1, o1, store, b, g1)
+    m2, o2, g2 = fresh()
+    runner = EpochRunner(m2, o2, g2)
+    # a first phase as long as the longest below: their buffers fit, so
+    # they replay the graphs it captured and capture none
+    runner.train_epoch(store, stack_batches(_take(pool, EPOCH_TIMED), cfg,
+                                            n_rows))
+    captured = runner.captures
+    # --- a phase of replays under the sync debug mode --------------------
+    stacked = stack_batches(_take(pool, EPOCH_REPLAYS), cfg, n_rows)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        runner.train_epoch(store, stacked)
+    except RuntimeError as e:
+        raise AssertionError(f"{name}: a replayed phase synchronised: "
+                             f"{e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    # --- a traced phase of replays: launches against the counters, after
+    # a phase in the profiler's warm-up (in a long run CUPTI has been seen
+    # to miss the first kernels of a trace's first replay). CUPTI now and
+    # then drops kernel records (``device_ms``): a trace with other counts
+    # is taken again, over another phase, up to three times
+    tries = []
+    for _ in range(3):
+        warm_phase, stacked = (
+            stack_batches(_take(pool, k), cfg, n_rows)
+            for k in (warm, PROFILE_STEPS))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            runner.train_epoch(store, warm_phase)
+            torch.cuda.synchronize()
+            prof.step()
+            zero_counts(counters)
+            runner.train_epoch(store, stacked)
+            torch.cuda.synchronize()
+            prof.step()
+        traced = _trace_launches(prof)
+        counted = {k: counters[k].launches for k in PROFILED}
+        if traced == counted and all(counted.values()):
+            break
+        tries.append(traced)
+    else:
+        raise AssertionError(f"{name}: {PROFILE_STEPS} replays: traced "
+                             f"{tries}, counted {counted}")
+    if tries:
+        log(f"{name}: traced again after {tries} (counted {counted})")
+    busy = {"replay": _device_busy_ms(prof) / PROFILE_STEPS}
+    eager_batches = _take(pool, PROFILE_STEPS + 1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        train_step(m1, o1, store, eager_batches[0], g1)
+        torch.cuda.synchronize()
+        prof.step()
+        for b in eager_batches[1:]:
+            train_step(m1, o1, store, b, g1)
+        torch.cuda.synchronize()
+        prof.step()
+    busy["eager"] = _device_busy_ms(prof) / PROFILE_STEPS
+    # --- timed windows, eager and by replay in turns ---------------------
+    wall = {"eager": [], "replay": []}
+    host = {"eager": [], "replay": []}
+    for _ in range(2):
+        for way in ("eager", "replay"):
+            window = _take(pool, EPOCH_TIMED)
+            stacked = stack_batches(window, cfg, n_rows) \
+                if way == "replay" else None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if way == "replay":
+                runner.train_epoch(store, stacked)
+            else:
+                for b in window:
+                    train_step(m1, o1, store, b, g1)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            host[way].append((t1 - t0) / EPOCH_TIMED * 1e6)
+            wall[way].append((t2 - t0) / EPOCH_TIMED * 1e3)
+    if runner.captures != captured:
+        raise AssertionError(f"{name}: the checked phases captured again: "
+                             f"{runner.counts()}")
+    worst = max((d for _, d in differ), default=0.0)
+    out = {"name": name, "dtype": cfg.compute_dtype,
+           "bit_for_bit": not differ, "max_deviation": worst,
+           "first_difference": first, "launches": counted}
+    for way in ("eager", "replay"):
+        ms = min(wall[way])
+        out[way] = {
+            "images_per_s": [round(TRAIN_BATCH / w * 1e3, 1)
+                             for w in wall[way]],
+            "step_ms": [round(w, 4) for w in wall[way]],
+            "host_us_per_step": [round(h, 1) for h in host[way]],
+            "device_busy_ms": round(busy[way], 4),
+            "idle_share": round(max(0.0, 1.0 - busy[way] / ms), 4)}
+    log(f"{name} ({cfg.compute_dtype}): replay vs eager over "
+        f"{EPOCH_REPLAYS} steps: " + ("bit for bit" if not differ else
+                                       f"{len(differ)} tensors differ, "
+                                       f"largest {worst:.3g} of scale")
+        + f"; no synchronise; traced = counted {counted}; images/s eager "
+        f"{out['eager']['images_per_s']} replay "
+        f"{out['replay']['images_per_s']}; host us/step eager "
+        f"{out['eager']['host_us_per_step']} replay "
+        f"{out['replay']['host_us_per_step']}; idle eager "
+        f"{out['eager']['idle_share']} replay {out['replay']['idle_share']} "
+        f"({card})")
+    return out
+
+
+def run_epoch_runner(data_folder: str, dev, counters) -> list:
+    """Phase 4e: each of EPOCH_CASES (see the module note), on phase 4's
+    dataset with both views resident; prints one ``{"epoch_runner":
+    [...]}`` line beside the card."""
+    import torch
+    from srl_zoo_tpu_torch.data.device_cache import build_cache
+    from srl_zoo_tpu_torch.data.schema import load_dataset
+    t0 = time.perf_counter()
+    dataset = load_dataset(data_folder)
+    views = build_cache(dataset, dev, second_view=True)
+    rows, card = [], card_line()
+    for name, tokens, kw in EPOCH_CASES:
+        t1 = time.perf_counter()
+        rows.append(epoch_case(dev, dataset, views, counters, name, tokens,
+                               kw, card))
+        log(f"phase 4e, {name} in {time.perf_counter() - t1:.1f} s")
+    del views
+    torch.cuda.empty_cache()
+    log(json.dumps({"epoch_runner": rows, "card": card}))
+    log(f"phase 4e (the epoch runner) in {time.perf_counter() - t0:.1f} s")
+    # every case ran and printed before a deviation fails the phase
+    over = [(r["name"], r["max_deviation"]) for r in rows
+            if r["max_deviation"] > EPOCH_TOL]
+    if over:
+        raise AssertionError(f"replay differs from eager by more than "
+                             f"{EPOCH_TOL} of a tensor's scale: {over}")
+    return rows
+
+
+def epoch_runner_only(card: str) -> int:
+    """Phase 4e alone, on a freshly written phase 4 dataset, and the
+    card."""
+    from srl_zoo_tpu_torch.utils.device import (resolve_device,
+                                                use_strict_float32)
+    dev = resolve_device(None)
+    use_strict_float32()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_train_dataset(f"{tmp}/data")
+        log(f"training dataset written in {time.perf_counter() - t0:.1f} s")
+        run_epoch_runner(f"{tmp}/data", dev, kernel_counters())
+    print(card)
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -3681,12 +4151,13 @@ def main(argv) -> int:
     data_only = argv == ["--data-layer"]
     dist_only = argv == ["--dist-tooling"]
     alt_only = argv == ["--alternatives"]
-    if argv and not (data_only or dist_only or alt_only):
+    epoch_only = argv == ["--epoch-runner"]
+    if argv and not (data_only or dist_only or alt_only or epoch_only):
         if len(argv) != 2 or argv[0] not in ("--pools-of", "--step-seeds") \
                 or argv[0] == "--step-seeds" and not argv[1].isdigit():
             print("usage: chip_smoke.py [--pools-of CHECKOUT | --step-seeds "
-                  "N | --data-layer | --dist-tooling | --alternatives]",
-                  file=sys.stderr)
+                  "N | --data-layer | --dist-tooling | --alternatives | "
+                  "--epoch-runner]", file=sys.stderr)
             return 2
         if argv[0] == "--step-seeds":
             seeds = int(argv[1])
@@ -3730,6 +4201,8 @@ def main(argv) -> int:
             return dist_tooling_only(card)
         if alt_only:
             return alternatives_only(card)
+        if epoch_only:
+            return epoch_runner_only(card)
 
         from srl_zoo_tpu_torch.checkpoint import save_srl_model
         from srl_zoo_tpu_torch.config import SRLConfig
@@ -3841,6 +4314,7 @@ def main(argv) -> int:
                 log(f"{name}: training profile in "
                     f"{time.perf_counter() - t0:.1f} s")
             run_export(tmp)
+            run_epoch_runner(f"{tmp}/data", dev, counters)
 
             t0 = time.perf_counter()
             data = run_data_layer(f"{tmp}/data", f"{tmp}/data_layer", dev,

@@ -44,7 +44,8 @@ import numpy as np
 import torch
 
 from srl_zoo_tpu_torch.data.schema import Dataset
-from srl_zoo_tpu_torch.ops.gather_norm import gather_normalize
+from srl_zoo_tpu_torch.ops.gather_norm import (gather_normalize,
+                                               gather_normalize_device)
 from srl_zoo_tpu_torch.ops.sharded_store import (ShardedStore,
                                                  build_sharded_cache)
 from srl_zoo_tpu_torch.parallel import mesh
@@ -236,15 +237,21 @@ def store_rows(store) -> int:
 def gather_view(store, view: str, idx, mode: str) -> torch.Tensor:
     """This rank's rows of the normalized frames ``idx`` (a host index of
     the global batch) of one camera view: K2 from a whole or hybrid store,
-    or the sharded store's gather."""
+    or the sharded store's gather. ``idx`` may also be an int64 tensor on
+    the store's device whose entries were range-checked before it went up
+    (a captured step's: K2's device-index form)."""
     if isinstance(store, ShardedStore):
         return store.gather(view, idx, mode)
+    if isinstance(idx, torch.Tensor):
+        return gather_normalize_device(store[view], mesh.shard_rows(idx),
+                                       mode)
     return gather_normalize(store[view], mesh.shard_rows(idx), mode)
 
 
 def gather_obs(store, idx, cfg) -> torch.Tensor:
     """The encoder's normalized input (B, H, W, C) of the store rows
-    ``idx`` (a host index; in a process group, this rank's rows of it):
+    ``idx`` (a host index, or a device index as ``gather_view`` takes it;
+    in a process group, this rank's rows of it):
     the first view's frames, with the second view's stacked on the channel
     axis when the config stacks both. Each view is one gather of its own
     store; "image_net" mode repeats the 3-channel statistics, so the two

@@ -10,10 +10,19 @@ an NVIDIA GPU and the CUDA toolkit.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` turns a nonzero code into an exception.
+
+Each wrapper counts its launches on attributes of its own function
+(``launches``, and beside it ``vector_launches`` or ``bf16_launches``)
+through :func:`count`. A launch made while a CUDA graph is captured runs
+only when the graph is replayed, so inside :func:`tally_launches` the
+counts go to the capture's :class:`LaunchTally` instead, and
+``LaunchTally.replayed(n)`` adds the captured counts n times: the
+counters count what ran.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -54,6 +63,10 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _entries: dict = {}
+# the tallies of the captures under way, innermost last: a capture's
+# backward launches from the autograd engine's device thread, so the
+# stack is the process's, not a thread's
+_tallies: list = []
 
 
 class KernelBuildError(RuntimeError):
@@ -149,3 +162,45 @@ def check(code: int, what: str) -> None:
     if code != 0:
         raise KernelLaunchError(f"{what} launch failed with CUDA error "
                                 f"{code}")
+
+
+class LaunchTally:
+    """The counts of the launches captured into a CUDA graph, by wrapper
+    and counter: {(function, attribute): amount}."""
+
+    def __init__(self):
+        self.counts: dict = {}
+
+    def replayed(self, times: int = 1) -> None:
+        """Add the captured counts ``times`` times to the wrappers'
+        counters: the graph ran ``times`` times."""
+        for (fn, attr), n in self.counts.items():
+            setattr(fn, attr, getattr(fn, attr) + n * times)
+
+
+@contextlib.contextmanager
+def tally_launches():
+    """Count the launches made until the block ends, in any thread, into a
+    new :class:`LaunchTally` (yielded) instead of the wrappers' counters:
+    the launches of a graph capture."""
+    tally = LaunchTally()
+    with _lock:
+        _tallies.append(tally)
+    try:
+        yield tally
+    finally:
+        with _lock:
+            _tallies.remove(tally)
+
+
+def count(fn, **amounts) -> None:
+    """Add each of ``amounts`` to the counter attribute of the wrapper
+    ``fn`` it names (``launches=1``, ``vector_launches=...``), or to the
+    innermost capture's tally inside :func:`tally_launches`."""
+    with _lock:
+        counts = _tallies[-1].counts if _tallies else None
+        for attr, n in amounts.items():
+            if counts is None:
+                setattr(fn, attr, getattr(fn, attr) + int(n))
+            else:
+                counts[(fn, attr)] = counts.get((fn, attr), 0) + int(n)

@@ -27,7 +27,8 @@ path's C = 64 in channels_last memory), and a scalar path in the same
 source for any other shape. Each wrapper counts its launches
 (``launches``) and, beside them, its vector-path launches
 (``vector_launches``) and its bfloat16 launches (``bf16_launches``: the
-``--dtype bfloat16`` models' pools).
+``--dtype bfloat16`` models' pools), a launch captured into a CUDA graph
+once for each replay (ops/_build.py ``count``).
 """
 
 from __future__ import annotations
@@ -167,9 +168,8 @@ def _fwd_kernel(x: torch.Tensor, padding, with_index: bool):
                          _DTYPES[x.dtype], b, h, w, c, oh, ow, pads[0][0],
                          pads[1][0], int(vector))
     _build.check(code, "relu_max_pool")
-    relu_max_pool.launches += 1
-    relu_max_pool.vector_launches += vector
-    relu_max_pool.bf16_launches += x.dtype == torch.bfloat16
+    _build.count(relu_max_pool, launches=1, vector_launches=vector,
+                 bf16_launches=x.dtype == torch.bfloat16)
     return y, idx
 
 
@@ -203,9 +203,8 @@ def relu_max_pool_bwd(g: torch.Tensor, idx: torch.Tensor, x_shape,
                          _DTYPES[g.dtype], b, h, w, c, oh, ow, pads[0][0],
                          pads[1][0], int(vector))
     _build.check(code, "relu_max_pool_bwd")
-    relu_max_pool_bwd.launches += 1
-    relu_max_pool_bwd.vector_launches += vector
-    relu_max_pool_bwd.bf16_launches += g.dtype == torch.bfloat16
+    _build.count(relu_max_pool_bwd, launches=1, vector_launches=vector,
+                 bf16_launches=g.dtype == torch.bfloat16)
     return dx
 
 

@@ -14,18 +14,24 @@ identity index. Both normalize modes are one per-channel affine map, so
 neither leaves the kernel. An index outside [0, N) raises IndexError
 (JAX's ``take`` would fill the row silently).
 
-The index is best given on the host (numpy or a CPU tensor): it is
-range-checked there, before any launch, and goes up through pinned memory
-without a synchronise, so the host can queue the next work while the
-device gathers. A CUDA index is taken too, but it is the slow form: it is
-read back to the host first, which waits for the device, and then takes
-the same path.
+:func:`gather_normalize` takes its index on the host (numpy or a CPU
+tensor): it is range-checked there, before any launch, and goes up
+through pinned memory without a synchronise, so the host can queue the
+next work while the device gathers. A CUDA index is taken too, but it is
+the slow form: it is read back to the host first, which waits for the
+device, and then takes the same path. :func:`gather_normalize_device` is
+the device-index form of a captured step (training/epoch.py): its index
+already lies on the store's device, range-checked on the host when the
+epoch's indices were stacked (``check_host_index``), and it neither reads
+the index back nor uploads it, so it runs inside a CUDA graph capture.
 
 The kernel has a vector path, taken when a frame is a whole number of
 4-byte groups and the store starts 4-byte aligned (the main paths' 224 x
 224 x 3 frames), and a scalar path for any other frame size or a store
-slice at an odd offset. The wrapper counts its launches (``launches``)
-and, beside them, its vector-path launches (``vector_launches``).
+slice at an odd offset. The wrappers count their launches (``launches``)
+and, beside them, the vector-path launches (``vector_launches``) on
+``gather_normalize``, a launch captured into a CUDA graph once for each
+replay (ops/_build.py ``count``).
 """
 
 from __future__ import annotations
@@ -103,6 +109,33 @@ def gather_normalize(frames: torch.Tensor, idx,
     idx = check_host_index(idx, frames.shape[0])
     if frames.device.type == "cpu":
         return gather_normalize_plain(frames, torch.from_numpy(idx), mode)
+    return _launch(frames, upload(idx, frames.device), mode)
+
+
+def gather_normalize_device(frames: torch.Tensor, idx: torch.Tensor,
+                            mode: str = "tf") -> torch.Tensor:
+    """frames (N, H, W, C) uint8, idx (B,) int64 on the frames' device ->
+    (B, H, W, C) float32, with no host work on the index: the caller has
+    range-checked it (``check_host_index``) before it went up. A CUDA
+    store launches the kernel; a CPU store takes
+    :func:`gather_normalize_plain`; any other device raises."""
+    if frames.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"gather_normalize: no kernel for device "
+                         f"{frames.device}")
+    if idx.device != frames.device or idx.dtype != torch.int64 or \
+            idx.dim() != 1:
+        raise ValueError(f"gather_normalize_device: expected a 1-d int64 "
+                         f"index on {frames.device}, got {idx.dtype} "
+                         f"{tuple(idx.shape)} on {idx.device}")
+    if frames.device.type == "cpu":
+        return gather_normalize_plain(frames, idx, mode)
+    return _launch(frames, idx.contiguous(), mode)
+
+
+def _launch(frames: torch.Tensor, idx: torch.Tensor,
+            mode: str) -> torch.Tensor:
+    """The kernel on a CUDA store from an int64 device index whose entries
+    are in range; counted on ``gather_normalize``."""
     if frames.dtype != torch.uint8 or frames.dim() != 4 or \
             not frames.is_contiguous():
         raise ValueError(f"gather_normalize: expected a contiguous uint8 "
@@ -113,7 +146,6 @@ def gather_normalize(frames: torch.Tensor, idx,
     if f >= 2 ** 31:
         raise ValueError(f"gather_normalize: frames of {f} bytes (the "
                          "kernel takes fewer than 2^31)")
-    idx = upload(idx, frames.device)
     b = idx.shape[0]
     out = torch.empty((b, h, w, c), dtype=torch.float32,
                       device=frames.device)
@@ -127,8 +159,7 @@ def gather_normalize(frames: torch.Tensor, idx,
                          frames.data_ptr(), idx.data_ptr(), out.data_ptr(),
                          n, b, f, c, scale, offset, int(vector), per_row)
     _build.check(code, "gather_normalize")
-    gather_normalize.launches += 1
-    gather_normalize.vector_launches += vector
+    _build.count(gather_normalize, launches=1, vector_launches=vector)
     return out
 
 

@@ -31,7 +31,8 @@ import numpy as np
 import torch
 
 from srl_zoo_tpu_torch.ops.gather_norm import (check_host_index,
-                                               gather_normalize)
+                                               gather_normalize,
+                                               gather_normalize_device)
 from srl_zoo_tpu_torch.parallel import mesh
 from srl_zoo_tpu_torch.utils.device import upload
 
@@ -87,9 +88,11 @@ class ShardedStore:
         """This rank's rows of the normalized frames ``idx`` (the global
         batch's host index) of ``view``: the gather, then K2 over the
         identity index; without a process group, K2 from the block (which
-        then holds every row)."""
+        then holds every row), by a device index too (``gather_view``)."""
         local = self.views[view]
         if not mesh.active():
+            if isinstance(idx, torch.Tensor):
+                return gather_normalize_device(local, idx, mode)
             return gather_normalize(local, idx, mode)
         u8 = gather_sharded(local, idx, self.rows)
         return gather_normalize(u8, np.arange(u8.shape[0]), mode)

@@ -8,9 +8,16 @@ store or none) and runs the epoch loop. Each split is one phase of index
 batches over the whole store, one phase of streamed batches
 (data/transfer.py, ``--stream-overlap``), or with a hybrid store
 (data/hybrid.py) a hot phase of slot-addressed batches and a cold phase of
-streamed ones, each batch wholly one or the other. Under rotation the
-phases are rebuilt every epoch, their generator seeded with seed + epoch,
-the cold phases adopt their entering rows into the store, the slots
+streamed ones, each batch wholly one or the other. A cached phase (the
+whole store's, a hybrid store's hot phase) runs whole, as the JAX
+learner's ``train_epoch`` / ``eval_epoch`` scan does: its batches are
+stacked once (``stack_batches``) and the epoch runner (training/epoch.py)
+runs them, on a CUDA device as replays of captured CUDA graphs. Streamed
+and cold phases run the per-step loop (``train_step``, ``eval_step``), and
+so does every phase in a process group (the choice is ``_whole``). Under
+rotation the phases are rebuilt every epoch, their generator seeded with
+seed + epoch, the cold phases adopt their entering rows into the store,
+the slots
 validation's hot phase reads are held until it is done, and the window
 moves on after validation; a resumed run replays the window to its start
 epoch. An epoch is the train steps, train metrics
@@ -61,19 +68,22 @@ import torch
 
 from srl_zoo_tpu_torch import checkpoint as ckpt
 from srl_zoo_tpu_torch.config import SRLConfig
-from srl_zoo_tpu_torch.data.device_cache import open_store
+from srl_zoo_tpu_torch.data.device_cache import open_store, store_rows
 from srl_zoo_tpu_torch.data.loader import DataLoader, batch_flags
 from srl_zoo_tpu_torch.data.schema import Dataset
 from srl_zoo_tpu_torch.data.transfer import stream_batches
 from srl_zoo_tpu_torch.evaluation import predict_dataset
 from srl_zoo_tpu_torch.inference import StateEncoder
 from srl_zoo_tpu_torch.models.torch_port import load_ported_resnet18
+from srl_zoo_tpu_torch.ops.gather_norm import check_host_index
 from srl_zoo_tpu_torch.parallel import mesh
 from srl_zoo_tpu_torch.losses.registry import recompose_epoch_means
+from srl_zoo_tpu_torch.training.epoch import EpochRunner
 from srl_zoo_tpu_torch.training.metrics import MetricsLogger
 from srl_zoo_tpu_torch.training.state import make_model, make_optimizer
 from srl_zoo_tpu_torch.training.train_step import (draw_corruption,
-                                                   eval_step, train_step)
+                                                   eval_step, step_arrays,
+                                                   train_step)
 from srl_zoo_tpu_torch.utils.device import resolve_device, use_strict_float32
 from srl_zoo_tpu_torch.utils.misc import (printGreen, printRed, printYellow,
                                           set_global_seeds)
@@ -95,16 +105,17 @@ def split_indices(dataset: Dataset, cfg: SRLConfig
 
 def mean_metrics(metric_dicts: List[Dict[str, torch.Tensor]],
                  cfg: SRLConfig) -> Dict[str, float]:
-    """Epoch means of per-step metrics, each weighted by its own per-step
-    denominator (``_w/<name>``, the pair count of a pair term, else
-    ``_n_valid``, the valid row count), fetched from the device in one
-    transfer; ``priors`` and ``total`` are then recomposed from the exact
-    component means."""
+    """Epoch means of per-step metrics (a step's dict of scalars, or a
+    whole phase's of (n_steps,) tensors: training/epoch.py), each
+    weighted by its own per-step denominator (``_w/<name>``, the pair
+    count of a pair term, else ``_n_valid``, the valid row count), fetched
+    from the device in one transfer; ``priors`` and ``total`` are then
+    recomposed from the exact component means."""
     if not metric_dicts:
         return {}
 
     def stacked(k):
-        return torch.stack([m[k] for m in metric_dicts]).float()
+        return torch.cat([m[k].reshape(-1) for m in metric_dicts]).float()
 
     names = [k for k in metric_dicts[0] if not k.startswith("_")]
     weights = [stacked(f"_w/{k}" if f"_w/{k}" in metric_dicts[0]
@@ -112,6 +123,26 @@ def mean_metrics(metric_dicts: List[Dict[str, torch.Tensor]],
     means = torch.stack([(stacked(k) * w).sum() / w.sum().clamp_min(1.0)
                          for k, w in zip(names, weights)]).cpu().tolist()
     return recompose_epoch_means(cfg, dict(zip(names, means)))
+
+
+def stack_batches(batches: List[Dict], cfg: SRLConfig, n_rows: int
+                  ) -> Dict[str, np.ndarray]:
+    """A cached phase's index batches as (n_steps, B, ...) arrays of
+    ``train_step.step_keys`` for the epoch runner (the JAX learner's
+    ``_stack_batches``, without its bucket padding: here only the real
+    steps run). Every store row is range-checked against the store's
+    ``n_rows`` rows, and every pair partner against the batch, here,
+    once for the phase: the runner's gathers read the rows as they
+    are."""
+    per_step = [step_arrays(b, cfg, n_rows) for b in batches]
+    stacked = {k: np.stack([a[k] for a in per_step]) for k in per_step[0]}
+    b = stacked["valid"].shape[1]
+    for k, v in stacked.items():
+        if k.endswith("rows"):
+            check_host_index(v.reshape(-1), n_rows)
+        elif k.endswith("partners"):
+            check_host_index(v.reshape(-1), b)
+    return stacked
 
 
 def load_frozen_dae(log_folder: str, device: torch.device):
@@ -144,6 +175,11 @@ class SRL4robotics:
                              "(--path-to-dae)")
         self.frozen_dae = load_frozen_dae(cfg.path_to_dae, self.device) \
             if cfg.path_to_dae else None
+        self.runner = EpochRunner(self.model, self.optimizer,
+                                  self.generator, self.frozen_dae)
+        # steps of the per-step loop (streamed and cold phases, and every
+        # phase in a process group); the runner counts its own
+        self.loop_steps = 0
         self._cache = None
         self._cache_of = None
         self._hot_store = None
@@ -254,6 +290,13 @@ class SRL4robotics:
         t0 = self._clock()
         self._hot_store.maybe_adopt(batch["indices"], batch)
         self._note(t0, epoch, "adopt")
+
+    def _whole(self, cached: bool) -> bool:
+        """Whether a phase runs whole through the epoch runner: a cached
+        phase without a process group. In a process group every phase
+        keeps the per-step loop (capturing the group's step with its
+        collectives is ROADMAP A14b)."""
+        return cached and not mesh.active()
 
     def _batches(self, loader: DataLoader, cached: bool):
         """A phase's batches: index batches as they come, streamed ones
@@ -372,15 +415,23 @@ class SRL4robotics:
                 acc, n_images = [], 0
                 for loader, cached in phases:
                     t0, n0 = self._clock(), n_images
-                    for batch in self._batches(loader, cached):
-                        acc.append(train_step(self.model, self.optimizer,
-                                              store if cached else None,
-                                              batch, self.generator,
-                                              self.frozen_dae))
-                        step += 1
-                        n_images += int(batch["valid"].sum())
-                        if not cached and hot_store is not None:
-                            self._adopt(batch, epoch)
+                    if self._whole(cached):
+                        stacked = stack_batches(list(loader), cfg,
+                                                store_rows(store))
+                        acc.append(self.runner.train_epoch(store, stacked))
+                        step += len(stacked["valid"])
+                        n_images += int(stacked["valid"].sum())
+                    else:
+                        for batch in self._batches(loader, cached):
+                            acc.append(train_step(
+                                self.model, self.optimizer,
+                                store if cached else None, batch,
+                                self.generator, self.frozen_dae))
+                            step += 1
+                            self.loop_steps += 1
+                            n_images += int(batch["valid"].sum())
+                            if not cached and hot_store is not None:
+                                self._adopt(batch, epoch)
                     self._note(t0, epoch, f"train {self._phase_name(cached)}",
                                n_images - n0)
                 train_metrics = mean_metrics(acc, cfg)
@@ -467,7 +518,11 @@ class SRL4robotics:
             val_metrics = self._run_eval(
                 val_phases() or self._make_phase_loaders(
                     dataset, train_idx, shuffle=False, wraparound=False))
-        printGreen(f"Best validation loss: {best_val:.4f}")
+        r = self.runner
+        printGreen(f"Best validation loss: {best_val:.4f}; cached phases "
+                   f"by the epoch runner: {r.replays} replays, "
+                   f"{r.eager_steps} eager steps, {r.captures} captures; "
+                   f"{self.loop_steps} steps of the per-step loop")
         return val_metrics
 
     def _run_eval(self, phases, epoch: int = -1) -> Dict[str, float]:
@@ -479,13 +534,22 @@ class SRL4robotics:
             if not cached and self._hot_store is not None:
                 self._hot_store.release()
             t0, rows = self._clock(), 0
-            for batch in self._batches(loader, cached):
-                acc.append(eval_step(self.model, self._cache if cached
-                                     else None, batch,
-                                     self._eval_corruption, self.frozen_dae))
-                rows += int(batch["valid"].sum())
-                if not cached and self._hot_store is not None:
-                    self._adopt(batch, epoch)
+            if self._whole(cached):
+                stacked = stack_batches(list(loader), self.cfg,
+                                        store_rows(self._cache))
+                acc.append(self.runner.eval_epoch(
+                    self._cache, stacked, self._eval_corruption))
+                rows += int(stacked["valid"].sum())
+            else:
+                for batch in self._batches(loader, cached):
+                    acc.append(eval_step(self.model, self._cache if cached
+                                         else None, batch,
+                                         self._eval_corruption,
+                                         self.frozen_dae))
+                    self.loop_steps += 1
+                    rows += int(batch["valid"].sum())
+                    if not cached and self._hot_store is not None:
+                        self._adopt(batch, epoch)
             self._note(t0, epoch, f"val {self._phase_name(cached)}", rows)
         return mean_metrics(acc, self.cfg)
 

@@ -13,6 +13,13 @@ k`` the Adams step once every k micro-steps with the mean of their
 gradients (optax's ``MultiSteps``). In a process group the gradients are
 averaged over the ranks before each Adam step (``mesh.average_gradients``;
 training/train_step.py says why), so every rank's Adams take one step.
+
+On a CUDA device the Adams are ``capturable``: each keeps its step count
+on the device and takes its bias corrections there, so that an eager step
+and a step captured into a CUDA graph (training/epoch.py) compute one
+arithmetic, and the gradients are cleared by ``zero_()``, in place: a
+graph reads and writes them at fixed addresses. On the CPU the count
+stays a host-side tensor and the gradients are set to None.
 """
 
 from __future__ import annotations
@@ -55,8 +62,10 @@ class AccumulatingAdam:
             disc = [n.startswith("discriminator.") for n, _ in named]
             groups = [[p for (_, p), d in zip(named, disc) if not d],
                       [p for (_, p), d in zip(named, disc) if d]]
+        self.capturable = self.params[0].device.type == "cuda"
         self.adams = [torch.optim.Adam(g, lr=cfg.learning_rate,
-                                       betas=(0.9, 0.999), eps=1e-8)
+                                       betas=(0.9, 0.999), eps=1e-8,
+                                       capturable=self.capturable)
                       for g in groups]
         self.every = cfg.grad_accum
         self.micro_step = 0
@@ -67,15 +76,32 @@ class AccumulatingAdam:
     def step(self) -> bool:
         """Count a micro-step; on the k-th, step the Adams and clear the
         gradients. Returns whether the parameters moved."""
+        moves = self.advance()
+        if moves:
+            self.apply()
+        return moves
+
+    def advance(self) -> bool:
+        """Count a micro-step on the host: whether it is the k-th, on
+        which the Adams step (the count then starts again)."""
         self.micro_step += 1
         if self.micro_step < self.every:
             return False
+        self.micro_step = 0
+        return True
+
+    def apply(self) -> None:
+        """Step the Adams on the accumulated gradients and clear them:
+        the device work of a stepping micro-step, which a graph captures."""
         self.average_gradients()
         for adam in self.adams:
             adam.step()
-            adam.zero_grad(set_to_none=True)
-        self.micro_step = 0
-        return True
+        if self.capturable:
+            torch._foreach_zero_([p.grad for p in self.params
+                                  if p.grad is not None])
+        else:
+            for adam in self.adams:
+                adam.zero_grad(set_to_none=True)
 
     def average_gradients(self) -> None:
         """The accumulated gradients averaged over the ranks of a process
@@ -94,11 +120,25 @@ class AccumulatingAdam:
                 if self.micro_step else []}
 
     def load_state_dict(self, state: Dict) -> None:
+        """A state of either form (a capturable Adam's, or a CPU Adam's,
+        as a run on the other device or before the runner saved it).
+        Adam's own load takes the saved groups' options, ``capturable``
+        among them: the Adams keep their own form instead, with each step
+        count a float32 scalar on the parameters' device where they are
+        capturable and on the host where they are not."""
         if len(state["adams"]) != len(self.adams):
             raise ValueError(f"{len(state['adams'])} Adam states for "
                              f"{len(self.adams)} Adams")
         for adam, s in zip(self.adams, state["adams"]):
             adam.load_state_dict(s)
+            for group in adam.param_groups:
+                group["capturable"] = self.capturable
+                for p in group["params"]:
+                    st = adam.state.get(p)
+                    if st and "step" in st:
+                        st["step"] = st["step"].to(
+                            dtype=torch.float32,
+                            device=p.device if self.capturable else "cpu")
         self.micro_step = int(state["micro_step"])
         grads = state["grads"] or [None] * len(self.params)
         if len(grads) != len(self.params):

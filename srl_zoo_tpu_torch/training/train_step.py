@@ -19,7 +19,13 @@ up without a synchronise, so the host can queue a step while the device still ru
 one before. The model runs forward (the pools' K1 forward writes the
 argmax plane), the loss is taken, the backward runs (K1's backward at each
 pool) and the optimizer counts a micro-step (training/state.py: Adam
-steps on every ``grad_accum``-th).
+steps on every ``grad_accum``-th). A cached phase of the learner runs
+whole instead (training/epoch.py, the JAX package's ``train_epoch`` /
+``eval_epoch``): its index batches are stacked once on the host
+(``step_keys``, ``step_arrays``), and each step (``cached_train_step``,
+``cached_eval_step``) reads its row of the stacked device tensors, so
+that K2 gathers by a device index and the step holds no host work that a
+CUDA graph could not capture.
 
 Random draws come in from the caller. In train mode a VAE's ``eps`` is
 drawn from the caller's ``torch.Generator``, one (B, state_dim) normal for
@@ -180,11 +186,82 @@ def _inputs(model: SRLModules, store: Optional[Dict[str, torch.Tensor]],
     cfg = model.cfg
     # host indices and metadata go up pinned and non-blocking: building a
     # step's inputs waits for nothing on the device
-    obs, next_obs, pos_obs, neg_obs = _images(model, store, batch)
-    dev = obs.device
+    images = _images(model, store, batch)
+    dev = images[0].device
     tensors = {k: upload(np.asarray(batch[k]), dev, dt)
                for k, dt in _metadata(cfg).items()}
-    b = len(batch["valid"])
+    return _draws(model, images, tensors,
+                  upload(batch["valid"], dev, torch.float32), generator,
+                  corruption)
+
+
+def step_keys(cfg) -> Dict[str, torch.dtype]:
+    """The inputs of a cached step in the form the epoch runner stacks
+    (training/epoch.py), and the dtype each goes up as: the store rows
+    (``rows``: the whole store's rows or the hybrid store's slots), the
+    next frames' rows (``next_rows``, where a loss reads them), the
+    triplet's negatives' rows (``neg_rows``), the metadata the losses
+    read and ``valid``."""
+    keys = {"rows": torch.int64}
+    if cfg.needs_next_obs:
+        keys["next_rows"] = torch.int64
+    if cfg.use_triplet:
+        keys["neg_rows"] = torch.int64
+    return keys | _metadata(cfg) | {"valid": torch.float32}
+
+
+def step_arrays(batch: Dict, cfg, n_rows: int) -> Dict[str, np.ndarray]:
+    """``step_keys``'s arrays of one index batch of a store of ``n_rows``
+    rows: the rows the per-step form gathers (by slot where the batch
+    carries slots; the next rows ``min(i + 1, n_rows - 1)`` otherwise),
+    computed on the host once, and the metadata as it comes."""
+    rows = np.asarray(batch.get("cache_slots", batch["indices"]), np.int64)
+    out = {"rows": rows}
+    if cfg.needs_next_obs:
+        nxt = batch.get("next_cache_slots")
+        out["next_rows"] = np.minimum(rows + 1, n_rows - 1) if nxt is None \
+            else np.asarray(nxt, np.int64)
+    if cfg.use_triplet:
+        out["neg_rows"] = np.asarray(batch.get(
+            "neg_cache_slots", batch.get("neg_indices")), np.int64)
+    for k in _metadata(cfg):
+        out[k] = np.asarray(batch[k])
+    out["valid"] = np.asarray(batch["valid"])
+    return out
+
+
+def _cached_inputs(model: SRLModules, store, xs: Dict[str, torch.Tensor],
+                   generator: Optional[torch.Generator] = None,
+                   corruption=None) -> Dict:
+    """``_inputs`` of one step of ``step_keys``'s tensors ``xs``, which
+    lie on the store's device already: K2 gathers by the device index
+    (range-checked when the epoch was stacked), and nothing crosses the
+    host link, so the step can be captured into a CUDA graph."""
+    cfg = model.cfg
+    mode = cfg.normalize_mode
+    rows = xs["rows"]
+    obs = gather_obs(store, rows, cfg)
+    next_obs = gather_obs(store, xs["next_rows"], cfg) \
+        if cfg.needs_next_obs else None
+    pos_obs = neg_obs = None
+    if cfg.use_triplet:
+        pos_obs = gather_view(store, "frames_2", rows, mode)
+        neg_obs = gather_view(store, "frames", xs["neg_rows"], mode)
+    return _draws(model, (obs, next_obs, pos_obs, neg_obs),
+                  {k: xs[k] for k in _metadata(cfg)}, xs["valid"],
+                  generator, corruption)
+
+
+def _draws(model: SRLModules, images, tensors: Dict[str, torch.Tensor],
+           valid: torch.Tensor, generator: Optional[torch.Generator],
+           corruption) -> Dict:
+    """The inputs dict of ``_inputs`` from the normalized frames, the
+    metadata tensors and ``valid``, with the train mode's random draws
+    (the VAE's eps, then the DAE's corruption) from ``generator``."""
+    cfg = model.cfg
+    obs, next_obs, pos_obs, neg_obs = images
+    dev = obs.device
+    b = valid.shape[0]
     noise = None
     if cfg.use_vae and model.training:
         noise = {name: mesh.shard_rows(torch.randn(
@@ -193,9 +270,8 @@ def _inputs(model: SRLModules, store: Optional[Dict[str, torch.Tensor]],
     if cfg.use_dae and model.training:
         corruption = draw_corruption(cfg, generator, b, dev)
     return {"obs": obs, "next_obs": next_obs, "pos_obs": pos_obs,
-            "neg_obs": neg_obs,
-            "valid": upload(batch["valid"], dev, torch.float32),
-            "batch": tensors, "noise": noise, "corruption": corruption}
+            "neg_obs": neg_obs, "valid": valid, "batch": tensors,
+            "noise": noise, "corruption": corruption}
 
 
 def _perceptual(model: SRLModules, outputs: Dict[str, torch.Tensor],
@@ -291,6 +367,35 @@ def train_step(model: SRLModules, optimizer,
     optimizer.backward(total)
     optimizer.step()
     return {k: v.detach() for k, v in metrics.items()}
+
+
+def cached_train_step(model: SRLModules, optimizer, store,
+                      xs: Dict[str, torch.Tensor],
+                      generator: torch.Generator, frozen_dae=None,
+                      apply: bool = True) -> Dict[str, torch.Tensor]:
+    """``train_step`` of one step of stacked device inputs (``xs``, as
+    ``_cached_inputs`` reads them), without the optimizer's host count:
+    the caller counts the micro-step (``optimizer.advance()``) and passes
+    whether the Adams step (``apply``), so that one graph captures an
+    accumulating micro-step and another a stepping one."""
+    model.train()
+    total, metrics = _loss(model, _cached_inputs(model, store, xs,
+                                                 generator), frozen_dae)
+    optimizer.backward(total)
+    if apply:
+        optimizer.apply()
+    return {k: v.detach() for k, v in metrics.items()}
+
+
+def cached_eval_step(model: SRLModules, store, xs: Dict[str, torch.Tensor],
+                     corruption=None, frozen_dae=None
+                     ) -> Dict[str, torch.Tensor]:
+    """``eval_step`` of one step of stacked device inputs."""
+    model.eval()
+    with torch.no_grad():
+        return _loss(model, _cached_inputs(model, store, xs,
+                                           corruption=corruption),
+                     frozen_dae)[1]
 
 
 def eval_step(model: SRLModules, store: Optional[Dict[str, torch.Tensor]],

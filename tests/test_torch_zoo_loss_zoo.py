@@ -863,19 +863,28 @@ def test_validation_corruption_is_fixed(synthetic_dataset, tmp_path,
     validation draw (the best model is chosen on it), while each train
     step draws anew."""
     from srl_zoo_tpu_torch.data.schema import load_dataset
+    from srl_zoo_tpu_torch.training import epoch as epoch_mod
     from srl_zoo_tpu_torch.training import learner as learner_mod
     from srl_zoo_tpu_torch.training import train_step as step_mod
     seen, drawn = [], []
-    real_eval, real_draw = learner_mod.eval_step, step_mod.draw_corruption
+    real_draw = step_mod.draw_corruption
 
-    def eval_step(model, store, batch, corruption=None, frozen_dae=None):
-        seen.append(tuple(c.clone() for c in corruption))
-        return real_eval(model, store, batch, corruption, frozen_dae)
+    def watched(real):
+        """The step ``real`` (the per-step loop's ``eval_step`` or the
+        epoch runner's ``cached_eval_step``, which the cached validation
+        phase runs), recording the corruption it reads."""
+        def step(model, store, batch, corruption=None, frozen_dae=None):
+            seen.append(tuple(c.clone() for c in corruption))
+            return real(model, store, batch, corruption, frozen_dae)
+        return step
 
     def draw(*args):
         drawn.append(real_draw(*args))
         return drawn[-1]
-    monkeypatch.setattr(learner_mod, "eval_step", eval_step)
+    monkeypatch.setattr(learner_mod, "eval_step",
+                        watched(learner_mod.eval_step))
+    monkeypatch.setattr(epoch_mod, "cached_eval_step",
+                        watched(epoch_mod.cached_eval_step))
     monkeypatch.setattr(step_mod, "draw_corruption", draw)
     cfg = SRLConfig.from_exp_config(_jcfg("dae", epochs=2).to_exp_config())
     with _one_torch_thread():
