@@ -31,6 +31,7 @@ import torch
 
 from srl_zoo_tpu_torch.config import SRLConfig
 from srl_zoo_tpu_torch.models.srl_modules import SRLModules
+from srl_zoo_tpu_torch.utils.spans import span
 
 MODEL_FILE = "srl_model.pth"
 RESUME_DIR = "checkpoints"
@@ -175,7 +176,8 @@ class AsyncCheckpointer:
     ``AsyncCheckpointer``).
 
     ``save_state`` and ``save_model`` take an on-device snapshot (tensor
-    clones queued on the device) and return; one worker thread keeps the
+    clones queued on the device) and return (the span
+    ``srl.checkpoint.submit``, utils/spans.py); one worker thread keeps the
     newest job of each kind, copies its snapshot to the host and writes
     it. The main thread never waits for the device here.
 
@@ -249,10 +251,12 @@ class AsyncCheckpointer:
                    best_val: float) -> None:
         """Queue the resume checkpoint after ``epoch`` completed epochs
         (``optimizer``: training/state.py ``AccumulatingAdam``)."""
-        self._submit("state", ({"model": snapshot(model.state_dict()),
-                                "optimizer": snapshot(optimizer.state_dict()),
-                                "generator": generator.get_state()},
-                               step, epoch, best_val))
+        with span("srl.checkpoint.submit"):
+            self._submit("state", (
+                {"model": snapshot(model.state_dict()),
+                 "optimizer": snapshot(optimizer.state_dict()),
+                 "generator": generator.get_state()},
+                step, epoch, best_val))
 
     def save_model(self, model: SRLModules,
                    state_dict: Dict[str, torch.Tensor]
@@ -260,8 +264,9 @@ class AsyncCheckpointer:
         """Queue ``srl_model.pth`` (``state_dict`` of a model of
         ``model``'s config) and ``exp_config.json``; returns the queued
         snapshot, which the caller may keep but must not change."""
-        snap = snapshot(state_dict)
-        self._submit("model", (model.cfg, snap))
+        with span("srl.checkpoint.submit"):
+            snap = snapshot(state_dict)
+            self._submit("model", (model.cfg, snap))
         return snap
 
     def close(self) -> None:

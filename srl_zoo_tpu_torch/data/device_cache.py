@@ -50,6 +50,7 @@ from srl_zoo_tpu_torch.ops.sharded_store import (ShardedStore,
                                                  build_sharded_cache)
 from srl_zoo_tpu_torch.parallel import mesh
 from srl_zoo_tpu_torch.utils.misc import printGreen, printYellow
+from srl_zoo_tpu_torch.utils.spans import span
 
 # share of the device's free memory that the store may take
 FREE_MEMORY_SHARE = 0.8
@@ -138,14 +139,15 @@ def build_cache(dataset: Dataset, device: torch.device,
                          f"frames.npy {arrays['frames'].shape} differ in "
                          f"{dataset.data_folder}")
     store = {}
-    for name, arr in arrays.items():
-        n = len(arr) if hot_n is None else hot_n
-        frames = torch.empty((n,) + arr.shape[1:], dtype=torch.uint8,
-                             device=device)
-        for s in range(0, n, UPLOAD_ROWS):  # bounded host staging
-            frames[s:s + UPLOAD_ROWS].copy_(torch.from_numpy(
-                np.array(arr[s:min(s + UPLOAD_ROWS, n)])))
-        store[name] = frames
+    with span("srl.store.upload"):
+        for name, arr in arrays.items():
+            n = len(arr) if hot_n is None else hot_n
+            frames = torch.empty((n,) + arr.shape[1:], dtype=torch.uint8,
+                                 device=device)
+            for s in range(0, n, UPLOAD_ROWS):  # bounded host staging
+                frames[s:s + UPLOAD_ROWS].copy_(torch.from_numpy(
+                    np.array(arr[s:min(s + UPLOAD_ROWS, n)])))
+            store[name] = frames
     return store
 
 

@@ -56,6 +56,7 @@ from srl_zoo_tpu_torch.ops import _build
 from srl_zoo_tpu_torch.training.train_step import (cached_eval_step,
                                                    cached_train_step,
                                                    step_keys)
+from srl_zoo_tpu_torch.utils.spans import span
 
 # the kinds of step, and which a phase needs
 EVAL, STEP, ACCUMULATE = "eval", "step", "accumulate"
@@ -108,16 +109,17 @@ class _Program:
         (pinned and non-blocking to a CUDA device), and the counter to
         step 0; returns the step count."""
         n = len(stacked["valid"])
-        if n > self.capacity:
-            self.grow(n)
-        for k, buf in self.bufs.items():
-            src = torch.from_numpy(np.ascontiguousarray(stacked[k])).to(
-                buf.dtype)
-            if self.device.type == "cuda":
-                buf[:n].copy_(src.pin_memory(), non_blocking=True)
-            else:
-                buf[:n].copy_(src)
-        self.counter.zero_()
+        with span("srl.runner.load"):
+            if n > self.capacity:
+                self.grow(n)
+            for k, buf in self.bufs.items():
+                src = torch.from_numpy(np.ascontiguousarray(stacked[k])).to(
+                    buf.dtype)
+                if self.device.type == "cuda":
+                    buf[:n].copy_(src.pin_memory(), non_blocking=True)
+                else:
+                    buf[:n].copy_(src)
+            self.counter.zero_()
         return n
 
     def inputs(self) -> Dict[str, torch.Tensor]:
@@ -219,51 +221,67 @@ class EpochRunner:
         return prog
 
     def _run(self, prog: _Program, body, kinds, needed) -> None:
-        """Each step of ``kinds``: eagerly on the CPU. On a CUDA device
-        eagerly on the capture stream until every kind of ``needed`` ran
-        once; then the kinds are captured and each later step is a
-        replay."""
+        """Each step of ``kinds``. Until every kind of ``needed`` ran once
+        in the program, and while the program has no graphs, the steps
+        warm it (``srl.runner.warm``): on a CUDA device eagerly on the
+        capture stream. Then on the CPU the rest run eagerly; on a CUDA
+        device the kinds are captured, and each later step is a replay
+        (``srl.runner.replay``, one span for the phase's replays)."""
+        i = 0
+        while i < len(kinds) and kinds[i] not in prog.graphs \
+                and not prog.warm.issuperset(needed):
+            with span("srl.runner.warm"):
+                self._eager(body, kinds[i])
+            prog.warm.add(kinds[i])
+            i += 1
+        rest = kinds[i:]
         if not self.on_cuda:
-            for kind in kinds:
+            for kind in rest:
                 body(kind)
-            self.eager_steps += len(kinds)
+            self.eager_steps += len(rest)
             return
-        main = torch.cuda.current_stream(self.device)
+        if rest and rest[0] not in prog.graphs:
+            self._capture(prog, body, needed)
         replays = dict.fromkeys(needed, 0)
         try:
-            for kind in kinds:
-                if kind not in prog.graphs:
-                    if not prog.warm.issuperset(needed):
-                        self.stream.wait_stream(main)
-                        with torch.cuda.stream(self.stream):
-                            body(kind)
-                        main.wait_stream(self.stream)
-                        prog.warm.add(kind)
-                        self.eager_steps += 1
-                        continue
-                    self._capture(prog, body, needed)
-                prog.graphs[kind][0].replay()
-                replays[kind] += 1
+            with span("srl.runner.replay"):
+                for kind in rest:
+                    prog.graphs[kind][0].replay()
+                    replays[kind] += 1
         finally:
             for kind, n in replays.items():
                 if n:
                     prog.graphs[kind][1].replayed(n)
             self.replays += sum(replays.values())
 
+    def _eager(self, body, kind) -> None:
+        """One step run eagerly: on a CUDA device on the capture stream,
+        ordered after the main stream's work and before its next."""
+        self.eager_steps += 1
+        if not self.on_cuda:
+            body(kind)
+            return
+        main = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(main)
+        with torch.cuda.stream(self.stream):
+            body(kind)
+        main.wait_stream(self.stream)
+
     def _capture(self, prog: _Program, body, kinds) -> None:
         """One graph of each of ``kinds``, on the capture stream; the
         train graphs draw from the learner's generator. The capture runs
         nothing: the counter, the statistics and the generator stay."""
-        for kind in kinds:
-            graph = torch.cuda.CUDAGraph()
-            if kind != EVAL:
-                graph.register_generator_state(self.generator)
-            with _build.tally_launches() as tally, torch.cuda.graph(
-                    graph, stream=self.stream,
-                    capture_error_mode="thread_local"):
-                body(kind)
-            prog.graphs[kind] = (graph, tally)
-            self.captures += 1
+        with span("srl.runner.capture"):
+            for kind in kinds:
+                graph = torch.cuda.CUDAGraph()
+                if kind != EVAL:
+                    graph.register_generator_state(self.generator)
+                with _build.tally_launches() as tally, torch.cuda.graph(
+                        graph, stream=self.stream,
+                        capture_error_mode="thread_local"):
+                    body(kind)
+                prog.graphs[kind] = (graph, tally)
+                self.captures += 1
 
     def counts(self) -> Dict[str, int]:
         return {"eager_steps": self.eager_steps, "replays": self.replays,

@@ -59,6 +59,7 @@ are gathered to every rank.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Callable, Dict, List, Optional, Tuple
@@ -84,6 +85,7 @@ from srl_zoo_tpu_torch.training.state import make_model, make_optimizer
 from srl_zoo_tpu_torch.training.train_step import (draw_corruption,
                                                    eval_step, step_arrays,
                                                    train_step)
+from srl_zoo_tpu_torch.utils import spans
 from srl_zoo_tpu_torch.utils.device import resolve_device, use_strict_float32
 from srl_zoo_tpu_torch.utils.misc import (printGreen, printRed, printYellow,
                                           set_global_seeds)
@@ -185,8 +187,9 @@ class SRL4robotics:
         self._hot_store = None
         self._eval_corruption = None
         # with time_phases each phase, adoption and rotation is timed
-        # between two device synchronises into phase_log (a measurement
-        # aid: the synchronises stall the host's queue ahead of the device)
+        # between two device synchronises into phase_log (``_phase``; a
+        # measurement aid: the synchronises stall the host's queue ahead
+        # of the device)
         self.time_phases = False
         self.phase_log: List[Dict] = []
         n_params = sum(p.numel() for p in self.model.parameters())
@@ -264,21 +267,25 @@ class SRL4robotics:
                                       **streamed), False))
         return phases
 
-    def _clock(self) -> Optional[float]:
-        """The host clock after the device's queue drains, where
-        ``time_phases`` asks for it."""
+    @contextlib.contextmanager
+    def _phase(self, epoch: int, what: str):
+        """Where ``time_phases`` asks for it, the block as the span
+        ``srl.learn.phase`` between two device synchronises, logged into
+        ``phase_log``; yields the entry, whose ``rows`` the block sets."""
+        entry = {"epoch": epoch, "what": what, "rows": 0}
         if not self.time_phases:
-            return None
+            yield entry
+            return
+        self._sync()
+        with spans.span("srl.learn.phase") as timed:
+            yield entry
+            self._sync()
+        entry["s"] = timed.seconds
+        self.phase_log.append(entry)
+
+    def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        return time.perf_counter()
-
-    def _note(self, t0: Optional[float], epoch: int, what: str,
-              rows: int = 0) -> None:
-        if t0 is not None:
-            self.phase_log.append({"epoch": epoch, "what": what,
-                                   "rows": rows,
-                                   "s": self._clock() - t0})
 
     def _phase_name(self, cached: bool) -> str:
         if self._hot_store is not None:
@@ -287,9 +294,8 @@ class SRL4robotics:
 
     def _adopt(self, batch: Dict, epoch: int) -> None:
         """The hybrid store adopts a streamed batch's entering rows."""
-        t0 = self._clock()
-        self._hot_store.maybe_adopt(batch["indices"], batch)
-        self._note(t0, epoch, "adopt")
+        with self._phase(epoch, "adopt"):
+            self._hot_store.maybe_adopt(batch["indices"], batch)
 
     def _whole(self, cached: bool) -> bool:
         """Whether a phase runs whole through the epoch runner: a cached
@@ -317,8 +323,7 @@ class SRL4robotics:
         return prof
 
     def _stop_profile(self, prof, epoch: int) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        self._sync()
         prof.stop()
         out = os.path.join(mesh.rank_folder(self.log_folder), "profile")
         os.makedirs(out, exist_ok=True)
@@ -357,7 +362,7 @@ class SRL4robotics:
             logger.save_history()
             logger.close()
             return {"total": 0.0}
-        store = self._store(dataset)
+        self._store(dataset)
         hot_store = self._hot_store
         rotating = hot_store is not None and hot_store.rotate
         # the DAE's one validation draw, read by every validation pass
@@ -405,76 +410,62 @@ class SRL4robotics:
         prof = None
         try:
             for epoch in range(start_epoch, cfg.epochs):
-                if profile and epoch == start_epoch:
-                    prof = self._start_profile()
-                t_epoch = time.time()
-                if rotating:
-                    hot_store.begin_epoch()
-                    hot_store.hold(val_reads)
-                    phases = train_phases(epoch)
-                acc, n_images = [], 0
-                for loader, cached in phases:
-                    t0, n0 = self._clock(), n_images
-                    if self._whole(cached):
-                        stacked = stack_batches(list(loader), cfg,
-                                                store_rows(store))
-                        acc.append(self.runner.train_epoch(store, stacked))
-                        step += len(stacked["valid"])
-                        n_images += int(stacked["valid"].sum())
-                    else:
-                        for batch in self._batches(loader, cached):
-                            acc.append(train_step(
-                                self.model, self.optimizer,
-                                store if cached else None, batch,
-                                self.generator, self.frozen_dae))
-                            step += 1
-                            self.loop_steps += 1
-                            n_images += int(batch["valid"].sum())
-                            if not cached and hot_store is not None:
-                                self._adopt(batch, epoch)
-                    self._note(t0, epoch, f"train {self._phase_name(cached)}",
-                               n_images - n0)
-                train_metrics = mean_metrics(acc, cfg)
-                ips = n_images / max(time.time() - t_epoch, 1e-9)
-                if prof is not None:
-                    self._stop_profile(prof, epoch)
-                    prof = None
-                if rotating:
-                    vphases = val_phases()
-                val_metrics = self._run_eval(vphases, epoch) if vphases \
-                    else train_metrics
-                if rotating:
-                    # after validation, whose cold batches adopt too, and
-                    # before the callback, which may export through the store
-                    t0 = self._clock()
-                    swept = hot_store.swept_rows
-                    hot_store.advance()
-                    self._note(t0, epoch, "advance",
-                               hot_store.swept_rows - swept)
+                since, ran = spans.totals(), self.runner.counts()
+                with spans.span("srl.learn.epoch"):
+                    if profile and epoch == start_epoch:
+                        prof = self._start_profile()
+                    t_epoch = time.time()
+                    if rotating:
+                        hot_store.begin_epoch()
+                        hot_store.hold(val_reads)
+                        phases = train_phases(epoch)
+                    acc, steps, n_images = self._train(phases, epoch)
+                    step += steps
+                    with spans.span("srl.learn.metrics"):
+                        train_metrics = mean_metrics(acc, cfg)
+                    ips = n_images / max(time.time() - t_epoch, 1e-9)
+                    if prof is not None:
+                        self._stop_profile(prof, epoch)
+                        prof = None
+                    if rotating:
+                        vphases = val_phases()
+                    val_metrics = self._run_eval(vphases, epoch) \
+                        if vphases else train_metrics
+                    if rotating:
+                        # after validation, whose cold batches adopt too,
+                        # and before the callback, which may export
+                        # through the store
+                        with self._phase(epoch, "advance") as timed:
+                            swept = hot_store.swept_rows
+                            hot_store.advance()
+                            timed["rows"] = hot_store.swept_rows - swept
 
-                logger.log_epoch(epoch, train_metrics, val_metrics)
-                logger.log_step(step, {f"train/{k}": v
-                                       for k, v in train_metrics.items()},
-                                epoch=epoch, images_per_sec=ips)
-                printGreen(f"Epoch {epoch + 1}/{cfg.epochs} "
-                           f"train {train_metrics['total']:.4f} "
-                           f"val {val_metrics['total']:.4f} "
-                           f"({ips:.0f} img/s)")
-                if val_metrics["total"] < best_val:
-                    best_val = val_metrics["total"]
-                    best = writer.save_model(
-                        self.model, self.model.state_dict()) if owner \
-                        else ckpt.snapshot(self.model.state_dict())
-                    improved = True
-                if (epoch + 1) % max(checkpoint_every, 1) == 0 \
-                        or epoch == cfg.epochs - 1:
-                    if self.optimizer.micro_step:
-                        # a mid-cycle checkpoint saves every rank's gradients
-                        self.optimizer.average_gradients()
-                    if owner:
-                        writer.save_state(self.model, self.optimizer,
-                                          self.generator, step, epoch + 1,
-                                          best_val)
+                    logger.log_epoch(epoch, train_metrics, val_metrics)
+                    logger.log_step(step, {f"train/{k}": v
+                                           for k, v in train_metrics.items()},
+                                    epoch=epoch, images_per_sec=ips)
+                    printGreen(f"Epoch {epoch + 1}/{cfg.epochs} "
+                               f"train {train_metrics['total']:.4f} "
+                               f"val {val_metrics['total']:.4f} "
+                               f"({ips:.0f} img/s)")
+                    if val_metrics["total"] < best_val:
+                        best_val = val_metrics["total"]
+                        best = writer.save_model(
+                            self.model, self.model.state_dict()) if owner \
+                            else ckpt.snapshot(self.model.state_dict())
+                        improved = True
+                    if (epoch + 1) % max(checkpoint_every, 1) == 0 \
+                            or epoch == cfg.epochs - 1:
+                        if self.optimizer.micro_step:
+                            # a mid-cycle checkpoint saves every rank's
+                            # gradients
+                            self.optimizer.average_gradients()
+                        if owner:
+                            writer.save_state(self.model, self.optimizer,
+                                              self.generator, step,
+                                              epoch + 1, best_val)
+                logger.log_spans(epoch, spans.delta(since), {
+                    k: n - ran[k] for k, n in self.runner.counts().items()})
                 if epoch_callback is not None:
                     epoch_callback(self, epoch, train_metrics, val_metrics)
         except BaseException:
@@ -525,33 +516,67 @@ class SRL4robotics:
                    f"{self.loop_steps} steps of the per-step loop")
         return val_metrics
 
+    def _train(self, phases, epoch: int) -> Tuple[list, int, int]:
+        """One epoch's train phases: (their per-step metrics, steps,
+        valid rows)."""
+        store, hot_store = self._cache, self._hot_store
+        acc, steps, n_images = [], 0, 0
+        for loader, cached in phases:
+            with self._phase(epoch, f"train {self._phase_name(cached)}") \
+                    as timed:
+                n0 = n_images
+                if self._whole(cached):
+                    with spans.span("srl.learn.stack"):
+                        stacked = stack_batches(list(loader), self.cfg,
+                                                store_rows(store))
+                    acc.append(self.runner.train_epoch(store, stacked))
+                    steps += len(stacked["valid"])
+                    n_images += int(stacked["valid"].sum())
+                else:
+                    for batch in self._batches(loader, cached):
+                        acc.append(train_step(
+                            self.model, self.optimizer,
+                            store if cached else None, batch,
+                            self.generator, self.frozen_dae))
+                        steps += 1
+                        self.loop_steps += 1
+                        n_images += int(batch["valid"].sum())
+                        if not cached and hot_store is not None:
+                            self._adopt(batch, epoch)
+                timed["rows"] = n_images - n0
+        return acc, steps, n_images
+
     def _run_eval(self, phases, epoch: int = -1) -> Dict[str, float]:
         """One masked-exact eval pass over the phases. A hybrid store's
         held slots are released once the hot phase is done, and the cold
         batches adopt their entering rows."""
         acc = []
-        for loader, cached in phases:
-            if not cached and self._hot_store is not None:
-                self._hot_store.release()
-            t0, rows = self._clock(), 0
-            if self._whole(cached):
-                stacked = stack_batches(list(loader), self.cfg,
-                                        store_rows(self._cache))
-                acc.append(self.runner.eval_epoch(
-                    self._cache, stacked, self._eval_corruption))
-                rows += int(stacked["valid"].sum())
-            else:
-                for batch in self._batches(loader, cached):
-                    acc.append(eval_step(self.model, self._cache if cached
-                                         else None, batch,
-                                         self._eval_corruption,
-                                         self.frozen_dae))
-                    self.loop_steps += 1
-                    rows += int(batch["valid"].sum())
-                    if not cached and self._hot_store is not None:
-                        self._adopt(batch, epoch)
-            self._note(t0, epoch, f"val {self._phase_name(cached)}", rows)
-        return mean_metrics(acc, self.cfg)
+        with spans.span("srl.learn.validate"):
+            for loader, cached in phases:
+                if not cached and self._hot_store is not None:
+                    self._hot_store.release()
+                with self._phase(epoch, f"val {self._phase_name(cached)}") \
+                        as timed:
+                    if self._whole(cached):
+                        with spans.span("srl.learn.stack"):
+                            stacked = stack_batches(
+                                list(loader), self.cfg,
+                                store_rows(self._cache))
+                        acc.append(self.runner.eval_epoch(
+                            self._cache, stacked, self._eval_corruption))
+                        timed["rows"] += int(stacked["valid"].sum())
+                    else:
+                        for batch in self._batches(loader, cached):
+                            acc.append(eval_step(
+                                self.model, self._cache if cached else None,
+                                batch, self._eval_corruption,
+                                self.frozen_dae))
+                            self.loop_steps += 1
+                            timed["rows"] += int(batch["valid"].sum())
+                            if not cached and self._hot_store is not None:
+                                self._adopt(batch, epoch)
+            with spans.span("srl.learn.metrics"):
+                return mean_metrics(acc, self.cfg)
 
     # ---- inference / export ------------------------------------------------
     def predict_states(self, dataset: Dataset,

@@ -3,9 +3,13 @@
 
 ``loss_history.npz`` holds ``epoch`` and ``train/<metric>`` /
 ``val/<metric>`` arrays, one entry per epoch; ``metrics.jsonl`` one record
-per logged step (``step``, ``time``, the metrics and any extras). A resumed
-run continues the history and drops the records of the epochs it runs
-again.
+per logged step (``step``, ``time``, the metrics and any extras), with the
+JAX package's keys; ``spans.jsonl`` one record per epoch of the host
+milliseconds of each ``srl.`` span the epoch ended (``host_ms``,
+utils/spans.py) and the epoch runner's counts (``runner``: its eager
+steps, replays and captures; a capture after the first epoch is a graph
+built again). A resumed run continues the history and drops the records
+of the epochs it runs again.
 """
 
 from __future__ import annotations
@@ -14,12 +18,13 @@ import json
 import os
 import time
 from collections import defaultdict
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 
 HISTORY_FILE = "loss_history.npz"
 JSONL_FILE = "metrics.jsonl"
+SPANS_FILE = "spans.jsonl"
 
 
 class MetricsLogger:
@@ -27,6 +32,7 @@ class MetricsLogger:
         self.log_folder = log_folder
         os.makedirs(log_folder, exist_ok=True)
         self._jsonl = open(os.path.join(log_folder, JSONL_FILE), "a")
+        self._spans = open(os.path.join(log_folder, SPANS_FILE), "a")
         self.history: Dict[str, list] = defaultdict(list)
         hist_path = os.path.join(log_folder, HISTORY_FILE)
         if os.path.exists(hist_path):
@@ -47,28 +53,31 @@ class MetricsLogger:
         self._jsonl.write(json.dumps(rec) + "\n")
         self._jsonl.flush()
 
+    def log_spans(self, epoch: int, spans: Dict[str, Tuple[int, float]],
+                  runner: Dict[str, int]) -> None:
+        """The epoch's record in ``spans.jsonl``: ``spans`` {name: (count,
+        seconds)} (utils/spans.py ``delta``) as milliseconds, and the
+        runner's counts."""
+        rec = {"epoch": int(epoch),
+               "host_ms": {k: round(1e3 * s, 3)
+                           for k, (_, s) in sorted(spans.items())},
+               "runner": {k: int(v) for k, v in runner.items()}}
+        self._spans.write(json.dumps(rec) + "\n")
+        self._spans.flush()
+
     def _truncate_jsonl(self, epoch: int) -> None:
         """Drop the records of ``epoch`` and later (a crashed attempt's),
         which a resumed run writes again."""
-        path = os.path.join(self.log_folder, JSONL_FILE)
         self._jsonl.close()
-        kept = []
+        self._spans.close()
         try:
-            with open(path) as f:
-                for line in f:
-                    try:
-                        rec = json.loads(line)
-                    except json.JSONDecodeError:
-                        continue  # torn tail of a crash mid-write
-                    if not isinstance(rec.get("epoch"), (int, float)) \
-                            or rec["epoch"] < epoch:
-                        kept.append(line)
-            tmp = f"{path}.{os.getpid()}.tmp"
-            with open(tmp, "w") as f:
-                f.writelines(kept)
-            os.replace(tmp, path)
+            _drop_records(os.path.join(self.log_folder, JSONL_FILE), epoch)
+            _drop_records(os.path.join(self.log_folder, SPANS_FILE), epoch)
         finally:
-            self._jsonl = open(path, "a")
+            self._jsonl = open(os.path.join(self.log_folder, JSONL_FILE),
+                               "a")
+            self._spans = open(os.path.join(self.log_folder, SPANS_FILE),
+                               "a")
 
     def log_epoch(self, epoch: int, train_metrics: Dict[str, float],
                   val_metrics: Dict[str, float]) -> None:
@@ -98,3 +107,22 @@ class MetricsLogger:
 
     def close(self) -> None:
         self._jsonl.close()
+        self._spans.close()
+
+
+def _drop_records(path: str, epoch: int) -> None:
+    """Drop the jsonl records of ``epoch`` and later from ``path``."""
+    kept = []
+    with open(path) as f:
+        for line in f:
+            try:
+                rec = json.loads(line)
+            except json.JSONDecodeError:
+                continue  # torn tail of a crash mid-write
+            if not isinstance(rec.get("epoch"), (int, float)) \
+                    or rec["epoch"] < epoch:
+                kept.append(line)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
+        f.writelines(kept)
+    os.replace(tmp, path)

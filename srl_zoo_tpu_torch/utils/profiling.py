@@ -8,7 +8,10 @@ table: the device's kernel, copy and memset time where the trace has
 CUDA activity, else (a CPU-only run) each operator's CPU self time, its
 time less that of the operators it called. The header says which it
 summed. The FLOPs column shows the trace's FLOP counts where its events
-carry them (``args.flops``) and ``n/a`` elsewhere.
+carry them (``args.flops``) and ``n/a`` elsewhere. Beside it, a second
+table sums the host time of the port's ``srl.`` spans (utils/spans.py):
+where the host's time went in the profiled epoch (stacking, the runner's
+load, warm-up, capture and replays, metrics, validation, checkpoints).
 
     python -m srl_zoo_tpu_torch.utils.profiling --log-folder logs/<run> \\
         [--top N]
@@ -26,6 +29,7 @@ from typing import List, NamedTuple, Optional, Tuple
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 DEVICE_TIME = "device time"
 CPU_SELF_TIME = "CPU self time"
+SPAN_TIME = "of longest span"
 
 
 class Row(NamedTuple):
@@ -90,17 +94,40 @@ def summarize_trace(trace_path: str, top: int = 12,
     return basis, rows[:top]
 
 
-def summarize_profile_dir(profile_dir: str, top: int = 12,
-                          basis: Optional[str] = None
-                          ) -> Tuple[str, List[Row]]:
-    """``summarize_trace`` of the newest trace under ``profile_dir``."""
+def span_times(trace_path: str) -> List[Row]:
+    """Host time of each ``srl.`` span of the trace (its ``user_annotation``
+    events), largest first; ``pct`` of the longest span's time."""
+    with open(trace_path) as f:
+        events = [e for e in json.load(f).get("traceEvents", [])
+                  if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+                  and e.get("name", "").startswith("srl.")]
+    us, calls = defaultdict(float), defaultdict(int)
+    for e in events:
+        us[e["name"]] += float(e["dur"])
+        calls[e["name"]] += 1
+    longest = max(us.values(), default=0.0) or 1.0
+    rows = [Row(n, 100.0 * t / longest, t / 1e3, calls[n], None)
+            for n, t in us.items()]
+    rows.sort(key=lambda r: -r.ms)
+    return rows
+
+
+def newest_trace(profile_dir: str) -> str:
+    """The newest trace under ``profile_dir``."""
     paths = sorted(glob.glob(os.path.join(profile_dir, "**", "*.json"),
                              recursive=True), key=os.path.getmtime)
     if not paths:
         raise FileNotFoundError(f"No torch.profiler traces under "
                                 f"{profile_dir}: run training with "
                                 "--profile first")
-    return summarize_trace(paths[-1], top=top, basis=basis)
+    return paths[-1]
+
+
+def summarize_profile_dir(profile_dir: str, top: int = 12,
+                          basis: Optional[str] = None
+                          ) -> Tuple[str, List[Row]]:
+    """``summarize_trace`` of the newest trace under ``profile_dir``."""
+    return summarize_trace(newest_trace(profile_dir), top=top, basis=basis)
 
 
 def format_table(basis: str, rows: List[Row]) -> str:
@@ -118,9 +145,13 @@ def main(argv=None):
     p.add_argument("--log-folder", type=str, required=True)
     p.add_argument("--top", type=int, default=12)
     args = p.parse_args(argv)
-    basis, rows = summarize_profile_dir(
-        os.path.join(args.log_folder, "profile"), top=args.top)
+    path = newest_trace(os.path.join(args.log_folder, "profile"))
+    basis, rows = summarize_trace(path, top=args.top)
     print(format_table(basis, rows))
+    spans = span_times(path)
+    if spans:
+        print()
+        print(format_table(SPAN_TIME, spans))
     return rows
 
 

@@ -103,7 +103,14 @@ def test_profile_writes_a_trace_that_the_summary_reads(synthetic_dataset,
     printed = profiling.main(["--log-folder", run, "--top", "5"])
     out = capsys.readouterr().out
     assert len(printed) == 5 and "% CPU self time" in out
-    assert out.count("\n") == 6
+    # the top-5 table, then the profiled training's srl. spans by host time
+    table, span_table = out.split("\n\n")
+    assert table.count("\n") == 5
+    names = [line.split()[-1] for line in span_table.splitlines()[1:]]
+    assert "% of longest span" in span_table
+    assert {"srl.learn.stack", "srl.runner.load",
+            "srl.learn.metrics"} <= set(names)
+    assert all(n.startswith("srl.") for n in names)
 
 
 def test_summary_of_a_device_trace(tmp_path):
