@@ -17,7 +17,10 @@ through :func:`count`. A launch made while a CUDA graph is captured runs
 only when the graph is replayed, so inside :func:`tally_launches` the
 counts go to the capture's :class:`LaunchTally` instead, and
 ``LaunchTally.replayed(n)`` adds the captured counts n times: the
-counters count what ran.
+counters count what ran. :func:`capture` records a CUDA graph inside its
+own tally, and :func:`run_on` runs its work once eagerly beforehand, on
+the capture stream: the epoch runner's steps and the state encoder's
+chunks are captured through both.
 """
 
 from __future__ import annotations
@@ -204,3 +207,30 @@ def count(fn, **amounts) -> None:
                 setattr(fn, attr, getattr(fn, attr) + int(n))
             else:
                 counts[(fn, attr)] = counts.get((fn, attr), 0) + int(n)
+
+
+def run_on(stream: torch.cuda.Stream, body) -> None:
+    """Run ``body`` eagerly on the side ``stream``: after the work queued
+    on the current stream of the stream's device, and before the work
+    queued there next (the warm-up before a :func:`capture` on it)."""
+    main = torch.cuda.current_stream(stream.device)
+    stream.wait_stream(main)
+    with torch.cuda.stream(stream):
+        body()
+    main.wait_stream(stream)
+
+
+def capture(body, stream: torch.cuda.Stream, pool=None, generators=()):
+    """A CUDA graph of ``body``'s device work (recorded, not run), captured
+    on ``stream``, into the memory pool ``pool`` where one is given, with
+    the state of each of ``generators`` registered with it; and the
+    :class:`LaunchTally` of the launches it holds. A failed capture
+    raises."""
+    graph = torch.cuda.CUDAGraph()
+    for generator in generators:
+        graph.register_generator_state(generator)
+    with tally_launches() as tally, torch.cuda.graph(
+            graph, pool=pool, stream=stream,
+            capture_error_mode="thread_local"):
+        body()
+    return graph, tally

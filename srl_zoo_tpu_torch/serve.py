@@ -6,9 +6,10 @@ to ``/encode`` and receive npy bytes of float32 states; GET /healthz returns
 run metadata. Requests are encoded one at a time, or grouped by the
 coalescer (``--coalesce-ms``) into one device batch of up to
 ``--max-batch`` rows. Either way every encode runs on one long-lived
-thread, which the server warms before it returns: PyTorch gives each
-thread its own cuDNN and cuBLAS handles, so the first encode on a fresh
-thread pays for them again.
+thread, which the server warms before it returns, at every batch size
+from 1 to ``--max-batch`` (on a GPU that also captures each size's CUDA
+graph): PyTorch gives each thread its own cuDNN and cuBLAS handles, so
+the first encode on a fresh thread pays for them again.
 
   python -m srl_zoo_tpu_torch.serve --log-folder logs/<run> --port 8080
   # client:
@@ -267,9 +268,11 @@ def build_server(log_folder: str, host: str = "127.0.0.1", port: int = 8080,
         def run_encode(obs):
             return worker.submit(encoder.encode, obs).result()
     # not on a client's clock: the first encode builds the kernels, and the
-    # first encode of each batch size picks its cuDNN plans, which takes
-    # far longer than the encode. Warm on the encode thread, which holds
-    # the handles. Every chunk the encoder runs has 1..max_batch rows.
+    # first encode of each batch size picks its cuDNN plans and, on a GPU,
+    # captures that size's CUDA graph (inference.py), which takes far
+    # longer than the encode. Warm on the encode thread, which holds the
+    # handles. Every chunk the encoder runs has 1..max_batch rows, so
+    # after this loop every request replays a graph.
     blank = np.zeros((max_batch,) + cfg.img_shape, np.uint8)
     try:
         for rows in range(1, max_batch + 1):

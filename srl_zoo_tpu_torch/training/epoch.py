@@ -261,11 +261,7 @@ class EpochRunner:
         if not self.on_cuda:
             body(kind)
             return
-        main = torch.cuda.current_stream(self.device)
-        self.stream.wait_stream(main)
-        with torch.cuda.stream(self.stream):
-            body(kind)
-        main.wait_stream(self.stream)
+        _build.run_on(self.stream, lambda: body(kind))
 
     def _capture(self, prog: _Program, body, kinds) -> None:
         """One graph of each of ``kinds``, on the capture stream; the
@@ -273,14 +269,9 @@ class EpochRunner:
         nothing: the counter, the statistics and the generator stay."""
         with span("srl.runner.capture"):
             for kind in kinds:
-                graph = torch.cuda.CUDAGraph()
-                if kind != EVAL:
-                    graph.register_generator_state(self.generator)
-                with _build.tally_launches() as tally, torch.cuda.graph(
-                        graph, stream=self.stream,
-                        capture_error_mode="thread_local"):
-                    body(kind)
-                prog.graphs[kind] = (graph, tally)
+                generators = () if kind == EVAL else (self.generator,)
+                prog.graphs[kind] = _build.capture(
+                    lambda: body(kind), self.stream, generators=generators)
                 self.captures += 1
 
     def counts(self) -> Dict[str, int]:
