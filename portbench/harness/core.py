@@ -10,7 +10,11 @@ per-layer metric is a file of its own that this module finds by the name
   ``file`` names it);
 * ``portbench/traffic/<traffic>.json``: a traffic mix's parameters; its
   ``kind`` names the module that runs it, ``harness/<kind>_cell.py``
-  (``train_cell.py``, ``encode_cell.py``);
+  (``train_cell.py``, ``encode_cell.py``, ``dp_cell.py``), which holds
+  everything of the kind (portbench/README.md, "A kind"): ``run(cell)``,
+  its planted faults (``FAULTS``), its readings for ``calibrate.py``
+  (``readings``), its key in a configuration's ``limits`` (``LIMITS``)
+  and its cut to the tests' size (``tiny``);
 * ``portbench/metrics/<metric>.py``: a per-layer metric's reader,
   ``read(readings) -> float | None``;
 * ``portbench/reference/<arch>.py``: the plain reference of the
@@ -20,6 +24,7 @@ per-layer metric is a file of its own that this module finds by the name
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib
 import importlib.util
 import json
@@ -62,6 +67,15 @@ def load_kind(kind: str):
     """The module that runs a traffic mix of ``kind``:
     ``harness/<kind>_cell.py``, with ``run(cell) -> Outcome``."""
     return importlib.import_module(f"portbench.harness.{kind}_cell")
+
+
+def planted_readings(reading, faults: Dict, items):
+    """``reading(cell)`` of each ``(cell, fault)`` item, in this process,
+    with the fault (a name of ``faults``, or None) planted around it: the
+    ``readings`` of a kind whose run is one process."""
+    for cell, fault in items:
+        with faults[fault]() if fault else contextlib.nullcontext():
+            yield reading(cell)
 
 
 def load_arch(arch: str):
@@ -121,6 +135,10 @@ class Outcome:
     memory_peak_bytes: int
     trace: object = None       # harness.trace.Trace of the traced part
     traced_s: float = 0.0      # its length on the host clock
+    # a run of several processes: the per-layer metrics, read where the
+    # program ran, and the name of its devices
+    layer_values: Optional[Dict[str, float]] = None
+    device_kind: Optional[str] = None
 
 
 def stage(cell: Cell, what: str) -> None:
@@ -150,14 +168,16 @@ def result_line(manifest: Dict, cell: Cell, out: Outcome) -> Dict:
             metrics[m["name"]] = {"value": out.e2e[m["name"]],
                                   "unit": m["unit"]}
     else:
+        values = out.layer_values
         for m in layer_metrics(manifest, cell.name):
-            v = load_reader(m["name"])(out.readings)
+            v = load_reader(m["name"])(out.readings) if values is None \
+                else values.get(m["name"])
             if v is not None:
                 metrics[m["name"]] = {"value": v, "unit": m["unit"]}
     cuda = cell.device.type == "cuda"
-    device = {"platform": "gpu" if cuda else "cpu",
-              "kind": torch.cuda.get_device_name(cell.device) if cuda
-              else "cpu",
+    kind = out.device_kind or (torch.cuda.get_device_name(cell.device)
+                               if cuda else "cpu")
+    device = {"platform": "gpu" if cuda else "cpu", "kind": kind,
               "count": cell.chips,
               "memory_peak_bytes": out.memory_peak_bytes}
     res = {"correct": check.passed(out.checks),

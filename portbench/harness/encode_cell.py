@@ -21,10 +21,16 @@ Once the window has closed, a sample of the window's calls drawn from the
 seed is encoded by the plain reference, from the same weights and
 observations, and each returned state row is held to it
 (harness/check.py ``state_gap``).
+
+As a kind (core.py): the limits are the configuration's
+``limits.encode``; the planted faults are one returned state element
+altered and half of a call's states left out; a reading for
+``calibrate.py`` is a run of ``--encode-seconds``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import shutil
 import tempfile
@@ -35,12 +41,16 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from portbench.harness import check, data
+from portbench.harness import check, core, data
 from portbench.harness import trace as tracing
 from portbench.harness.core import Cell, Outcome, stage
 from portbench.harness.train_cell import load_weights, srl_config
 
 REFERENCE_CHUNK = 256  # frames a reference forward
+LIMITS = "encode"
+# the tests' cut of the traffic: a small pool and few calls
+TINY = {"pool_frames": 64, "warm_calls": 2, "trace_calls": [3, 6],
+        "check_calls": 8, "schedule": 2000, "think_ms": [0.0, 0.1]}
 
 
 @dataclass
@@ -151,9 +161,48 @@ def run(cell: Cell) -> Outcome:
         e2e = {"setup_s": start - cell.t0,
                "encode_p95_ms": float(np.percentile(latencies, 95)) * 1e3}
         return Outcome(e2e=e2e, readings=readings,
-                       checks=check.judge(numbers, c["limits"]["encode"]),
+                       checks=check.judge(numbers, c["limits"][LIMITS]),
                        attempted=len(latencies), failed=0,
                        memory_peak_bytes=peak, trace=collected,
                        traced_s=traced_s)
     finally:
         shutil.rmtree(folder, ignore_errors=True)
+
+
+# ---- the kind's faults, readings and test size ------------------------------
+@contextlib.contextmanager
+def encode_fault(kind: str):
+    """``altered``: one element of each call's states changed by 1;
+    ``half_answer``: the second half of each call's states zeroed."""
+    from srl_zoo_tpu_torch.inference import StateEncoder
+    orig = StateEncoder.encode
+
+    def encode(self, obs):
+        s = orig(self, obs).copy()
+        if kind == "altered":
+            s[0, 0] += 1.0
+        else:
+            s[len(s) // 2:] = 0.0
+        return s
+    StateEncoder.encode = encode
+    try:
+        yield
+    finally:
+        StateEncoder.encode = orig
+
+
+FAULTS = {"altered": lambda: encode_fault("altered"),
+          "half_answer": lambda: encode_fault("half_answer")}
+
+
+def reading(cell: Cell) -> Dict[str, float]:
+    """The compared numbers of a run of the cell."""
+    return {k: c["value"] for k, c in run(cell).checks.items()}
+
+
+def readings(items):
+    return core.planted_readings(reading, FAULTS, items)
+
+
+def tiny(cell: Cell) -> None:
+    cell.traffic.update(TINY)

@@ -35,6 +35,12 @@ class Trace:
         name holds ``substring``."""
         return [(e - s) / 1e9 for s, e, n in self.device if substring in n]
 
+    def kernel_busy_s(self, substring: str) -> float:
+        """Seconds in which some operation whose name holds
+        ``substring`` ran on the device (the union of their intervals)."""
+        return sum(e - s for s, e in _union(
+            [d for d in self.device if substring in d[2]])) / 1e9
+
     def busy_s(self) -> float:
         """Seconds in which some operation ran on the device."""
         return sum(e - s for s, e in _union(self.device)) / 1e9

@@ -23,11 +23,20 @@ the window, and the profiler records the window's first epoch.
 
 Once the window has closed, the peak memory is read, the learner is
 freed, and the plain reference runs the probe's steps from the same
-weights and frames (harness/check.py says what is compared).
+weights and inputs (harness/check.py says what is compared). A reference
+names the inputs it reads (``INPUTS`` of ``reference/<arch>.py``), and
+the harness builds exactly those out of the dataset, from the rows each
+probe step read (``reference_step``).
+
+As a kind (core.py): the limits are the configuration's ``limits.train``;
+the planted faults are a step that returns its state unchanged and half
+of each batch left out of the loss; a reading for ``calibrate.py`` is
+set-up's probe against the reference, with no window.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import itertools
 import math
@@ -41,13 +50,14 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from portbench.harness import check, data, flops
+from portbench.harness import check, core, data, flops
 from portbench.harness import trace as tracing
 from portbench.harness.core import Cell, Outcome, stage
 
 # learn's epoch loop runs until the window closes it
 EPOCHS = 10 ** 6
 PROBE_STEPS = 3
+LIMITS = "train"
 
 
 class _WindowClosed(Exception):
@@ -287,10 +297,14 @@ class Window:
             self.collected = tracing.collect(self.prof)
             self.prof = None
             self.last = time.perf_counter()
-        if now - self.start >= self.seconds:
+        if self._closes(now):
             self.end = now
             self.counts1 = self.counts(learner)
             raise _WindowClosed
+
+    def _closes(self, now: float) -> bool:
+        """Whether the window closes at this epoch's end."""
+        return now - self.start >= self.seconds
 
     def _start_profile(self) -> None:
         from torch.profiler import ProfilerActivity, profile
@@ -302,22 +316,71 @@ class Window:
         self.prof_t0 = time.perf_counter()
 
 
+def successors(dataset, rows) -> np.ndarray:
+    """The row that follows each of ``rows`` in its episode, by the zoo's
+    pairing of a frame with the next one (``episode_starts``): row i + 1
+    where it exists and starts no episode, else -1. The zoo pairs an
+    episode's last frame with nothing and leaves it out of its
+    minibatches; the port's loader pairs it with row ``min(i + 1, N -
+    1)``, the next episode's first frame or itself."""
+    rows = np.asarray(rows, np.int64)
+    nxt = rows + 1
+    has = nxt < len(dataset.episode_starts)
+    has[has] = ~np.asarray(dataset.episode_starts, bool)[nxt[has]]
+    return np.where(has, nxt, -1)
+
+
+def reward_classes(dataset, rows) -> np.ndarray:
+    """The reward class the zoo pairs with the transition from each of
+    ``rows`` to its successor: the class of the reward received on
+    arriving at the successor (the dataset's ``rewards[t]`` is the reward
+    on arriving at frame t), a class being the rank of the reward among
+    the dataset's distinct values. -1 where the row has no successor."""
+    rewards = np.asarray(dataset.rewards)
+    classes = np.searchsorted(np.unique(rewards), rewards)
+    nxt = successors(dataset, rows)
+    return np.where(nxt >= 0, classes[np.maximum(nxt, 0)], -1)
+
+
+# the inputs that only a transition has: a reference that reads one is
+# handed the rows the zoo pairs with a successor
+TRANSITION_INPUTS = ("next", "actions", "reward_classes")
+
+
 def reference_step(cell: Cell, dataset, rows: Dict) -> Dict:
-    """One probe step as the reference reads it: the uint8 frames of its
-    real rows (padding left out), from the dataset, on the device."""
+    """One probe step as the reference reads it: each input that its
+    module names in ``INPUTS``, of the step's real rows (padding left
+    out), out of the dataset, on the device: ``obs`` the uint8 frames,
+    ``pos`` their second view, ``neg`` the negatives' frames (a black
+    frame for one that is no row of the dataset), ``next`` the frames of
+    their successors (``successors``), ``actions`` their actions and
+    ``reward_classes`` the classes of the rewards their transitions earn
+    (int64). A reference that reads a transition is handed only the rows
+    that have a successor, as the zoo's minibatches hold only those."""
     def up(a):
-        return torch.from_numpy(a).to(cell.device)
-    keep = rows["valid"]
+        return torch.from_numpy(np.ascontiguousarray(a)).to(cell.device)
+    inputs = cell.arch.INPUTS
+    keep = rows["valid"].copy()
+    nxt = successors(dataset, rows["rows"])
+    if any(k in TRANSITION_INPUTS for k in inputs):
+        keep &= nxt >= 0
     r = rows["rows"][keep]
-    step = {"obs": up(dataset.frames[r])}
-    if rows["neg_rows"] is not None:
-        neg = rows["neg_rows"][keep]
-        step["pos"] = up(dataset.frames_2[r])
+
+    def neg():
         # a negative that is no row of the dataset reads a black frame
-        step["neg"] = up(np.where((neg >= 0)[:, None, None, None],
-                                  dataset.frames[np.maximum(neg, 0)], 0
-                                  ).astype(np.uint8))
-    return step
+        n = rows["neg_rows"][keep]
+        return up(np.where((n >= 0)[:, None, None, None],
+                           dataset.frames[np.maximum(n, 0)], 0
+                           ).astype(np.uint8))
+    make = {"obs": lambda: up(dataset.frames[r]),
+            "pos": lambda: up(dataset.frames_2[r]),
+            "neg": neg,
+            "next": lambda: up(dataset.frames[nxt[keep]]),
+            "actions": lambda: up(np.asarray(dataset.actions)[r].astype(
+                np.int64)),
+            "reward_classes": lambda: up(reward_classes(
+                dataset, r).astype(np.int64))}
+    return {k: make[k]() for k in inputs}
 
 
 def setup(cell: Cell, folder: str):
@@ -356,7 +419,8 @@ def numbers(cell: Cell, dataset, weights, got) -> Dict[str, float]:
 
 
 def limits(cell: Cell) -> Dict[str, float]:
-    return dict(cell.config["limits"]["train"], repeated_rows=0.0)
+    key = core.load_kind(cell.traffic["kind"]).LIMITS
+    return dict(cell.config["limits"][key], repeated_rows=0.0)
 
 
 def free(device) -> None:
@@ -366,47 +430,124 @@ def free(device) -> None:
 
 
 def run(cell: Cell) -> Outcome:
-    from srl_zoo_tpu_torch.training.learner import split_indices
     folder = tempfile.mkdtemp(prefix="portbench_run_")
+    try:
+        return measure(cell, folder)
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+
+
+def measure(cell: Cell, folder: str, window: Optional[Window] = None,
+            ranks: int = 1, settled=None, freed=None,
+            judged: bool = True) -> Outcome:
+    """A run of a training cell whose learner logs into ``folder``: set-up,
+    the probe, the window (``window``, by default a ``Window`` of the
+    cell) and, once the learner is freed, the reference. A rank of a
+    process group of ``ranks`` processes passes its own window, what to
+    do once the inputs are made (``settled``) and once the learner is
+    freed (``freed``), and whether it runs the reference (``judged``)."""
+    from srl_zoo_tpu_torch.training.learner import split_indices
+    cfg, dataset, weights, learner = setup(cell, folder)
+    if settled is not None:
+        settled()
+    got = probe(learner, dataset, cfg)
+    stage(cell, "probe steps run")
+    window = window or Window(cell.seconds, cell.device, cell.trace,
+                              cell.t0)
+    try:
+        learner.learn(dataset, epoch_callback=window)
+    except _WindowClosed:
+        pass
+    if window.end is None:
+        raise RuntimeError("learn ended before the window closed")
+    peak = torch.cuda.max_memory_allocated(cell.device) \
+        if cell.device.type == "cuda" else 0
+    train_idx, val_idx = split_indices(dataset, cfg)
+    steps = flops.step_counts(len(train_idx), len(val_idx), cfg.batch_size)
+    phase_log = [p for p in learner.phase_log
+                 if p["epoch"] in window.epochs]
+    del learner
+    free(cell.device)
+    if freed is not None:
+        freed()
+    # the reference runs after the window, with the program freed
+    checks = check.judge(numbers(cell, dataset, weights, got),
+                         limits(cell)) if judged else {}
+    rows = steps["train"] * cfg.batch_size * len(window.epoch_s)
+    n_bad = sum(not ok for ok in window.finite)
+    e2e = {"setup_s": window.start - cell.t0,
+           cell.traffic["rate_metric"]: rows / (window.end - window.start)}
+    counts = {k: window.counts1[k] - window.counts0[k]
+              for k in window.counts0}
+    # a rank computes its share of each batch
+    readings = TrainReadings(
+        config=cell.config, arch=cell.arch, batch=cfg.batch_size // ranks,
+        steps=steps, epoch_s=window.epoch_s, phase_log=phase_log,
+        counts=counts, traced_s=window.traced_s, trace=window.collected)
+    return Outcome(e2e=e2e, readings=readings, checks=checks,
+                   attempted=steps["train"] * len(window.epoch_s),
+                   failed=steps["train"] * n_bad,
+                   memory_peak_bytes=peak, trace=window.collected,
+                   traced_s=window.traced_s)
+
+
+# ---- the kind's faults, readings and test size ------------------------------
+@contextlib.contextmanager
+def half_batch():
+    """Half of every train and eval batch's rows left out of the loss,
+    the mean taken over the rest (planted under the step's inputs)."""
+    from srl_zoo_tpu_torch.training import train_step as ts
+    orig = ts._draws
+
+    def draws(model, images, tensors, valid, generator, corruption):
+        keep = torch.ones_like(valid)
+        keep[valid.shape[0] // 2:] = 0
+        return orig(model, images, tensors, valid * keep, generator,
+                    corruption)
+    ts._draws = draws
+    try:
+        yield
+    finally:
+        ts._draws = orig
+
+
+@contextlib.contextmanager
+def unchanged_state():
+    """A step that returns its state unchanged: Adam's step left out."""
+    from srl_zoo_tpu_torch.training.state import AccumulatingAdam
+    orig = AccumulatingAdam.apply
+
+    def apply(self):
+        for adam in self.adams:
+            adam.zero_grad(set_to_none=not self.capturable)
+    AccumulatingAdam.apply = apply
+    try:
+        yield
+    finally:
+        AccumulatingAdam.apply = orig
+
+
+FAULTS = {"half_batch": half_batch, "unchanged_state": unchanged_state}
+
+
+def reading(cell: Cell) -> Dict[str, float]:
+    """The compared numbers of set-up's probe against the reference, with
+    no window."""
+    folder = tempfile.mkdtemp(prefix="portbench_calib_")
     try:
         cfg, dataset, weights, learner = setup(cell, folder)
         got = probe(learner, dataset, cfg)
-        stage(cell, "probe steps run")
-        window = Window(cell.seconds, cell.device, cell.trace, cell.t0)
-        try:
-            learner.learn(dataset, epoch_callback=window)
-        except _WindowClosed:
-            pass
-        if window.end is None:
-            raise RuntimeError("learn ended before the window closed")
-        peak = torch.cuda.max_memory_allocated(cell.device) \
-            if cell.device.type == "cuda" else 0
-        train_idx, val_idx = split_indices(dataset, cfg)
-        steps = flops.step_counts(len(train_idx), len(val_idx),
-                                  cfg.batch_size)
-        phase_log = [p for p in learner.phase_log
-                     if p["epoch"] in window.epochs]
         del learner
         free(cell.device)
-        # the reference runs after the window, with the program freed
-        checks = check.judge(numbers(cell, dataset, weights, got),
-                             limits(cell))
-        rows = steps["train"] * cfg.batch_size * len(window.epoch_s)
-        n_bad = sum(not ok for ok in window.finite)
-        e2e = {"setup_s": window.start - cell.t0,
-               cell.traffic["rate_metric"]: rows / (window.end
-                                                    - window.start)}
-        counts = {k: window.counts1[k] - window.counts0[k]
-                  for k in window.counts0}
-        readings = TrainReadings(
-            config=cell.config, arch=cell.arch, batch=cfg.batch_size,
-            steps=steps, epoch_s=window.epoch_s, phase_log=phase_log,
-            counts=counts, traced_s=window.traced_s,
-            trace=window.collected)
-        return Outcome(e2e=e2e, readings=readings, checks=checks,
-                       attempted=steps["train"] * len(window.epoch_s),
-                       failed=steps["train"] * n_bad,
-                       memory_peak_bytes=peak, trace=window.collected,
-                       traced_s=window.traced_s)
+        return numbers(cell, dataset, weights, got)
     finally:
         shutil.rmtree(folder, ignore_errors=True)
+
+
+def readings(items):
+    return core.planted_readings(reading, FAULTS, items)
+
+
+def tiny(cell: Cell) -> None:
+    """The tests' cut of a training cell: the configuration's
+    (tests/helpers.py ``TINY``) alone."""

@@ -40,6 +40,9 @@ DECONV_WIDTHS = (64, 64, 32, 16)
 DECONV_K = 4
 # encoder passes of one sample in a train step and in an eval step
 ENCODER_PASSES = 1
+# the inputs of a step that the loss reads (harness/train_cell.py
+# ``reference_step``)
+INPUTS = ("obs",)
 
 
 def _down(n: int) -> int:

@@ -37,6 +37,9 @@ MARGIN = 1.0
 # encoder passes of one sample in a train step and in an eval step:
 # anchor, positive, negative
 ENCODER_PASSES = 3
+# the inputs of a step that the loss reads (harness/train_cell.py
+# ``reference_step``)
+INPUTS = ("obs", "pos", "neg")
 
 
 def _blocks():

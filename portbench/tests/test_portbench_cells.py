@@ -1,22 +1,27 @@
 """Whole runs of every cell on the CPU at a size a test can hold: the
 harness's run but its look for a CUDA device. A sound run is correct and
 reports its metrics; the control (the program's bfloat16 path) and each
-fault that a cell can have, planted under the timed path, make
-``correct`` come out false."""
-
-import contextlib
+fault that a cell's kind plants (``FAULTS`` of ``harness/<kind>_cell.py``)
+make ``correct`` come out false. Every test here asks the cell's kind
+module, so a kind added as a file is run by them unedited."""
 
 import pytest
 
-from portbench import calibrate
-from portbench.harness import core
-from portbench.tests.helpers import run_tiny
+from portbench.harness import core, train_cell
+from portbench.tests.helpers import run_tiny, workloads
 
 MANIFEST = core.load_manifest()
-CELLS = [w["name"] for w in MANIFEST["workloads"]]
-TRAIN = [c for c in CELLS if core.load_traffic(core.find(
-    MANIFEST["workloads"], c, "workload")["traffic"])["kind"] == "train"]
-ENCODE = [c for c in CELLS if c not in TRAIN]
+CELLS = [w["name"] for w in workloads(MANIFEST)]
+
+
+def kind_of(cell: str):
+    """The module of the cell's traffic kind."""
+    entry = core.find(workloads(MANIFEST), cell, "workload")
+    return core.load_kind(core.load_traffic(entry["traffic"])["kind"])
+
+
+TRAIN = [c for c in CELLS if kind_of(c) is train_cell]
+FAULT_CASES = [(c, f) for c in CELLS for f in sorted(kind_of(c).FAULTS)]
 
 
 @pytest.mark.parametrize("trace", [False, True])
@@ -48,7 +53,7 @@ def test_streamed_traffic_runs_from_its_file_alone(cell):
     assert out.readings.counts["loop_steps"] > 0
     assert out.readings.counts["replays"] == 0
     assert out.readings.counts["eager_steps"] == 0
-    with calibrate.half_batch():
+    with train_cell.half_batch():
         _, res = run_tiny(cell, traffic="streamed")
     assert not res["correct"], res["checks"]
 
@@ -69,41 +74,9 @@ def test_a_new_kind_is_found_by_its_name(monkeypatch):
     assert seen == [cell]
 
 
-@contextlib.contextmanager
-def unchanged_state():
-    """A step that returns its state unchanged: Adam's step left out."""
-    from srl_zoo_tpu_torch.training.state import AccumulatingAdam
-    orig = AccumulatingAdam.apply
-
-    def apply(self):
-        for adam in self.adams:
-            adam.zero_grad(set_to_none=not self.capturable)
-    AccumulatingAdam.apply = apply
-    try:
-        yield
-    finally:
-        AccumulatingAdam.apply = orig
-
-
-TRAIN_FAULTS = {"unchanged_state": unchanged_state,
-                "half_batch": calibrate.half_batch}
-ENCODE_FAULTS = {"altered": lambda: calibrate.encode_fault("altered"),
-                 "half_answer": lambda: calibrate.encode_fault(
-                     "half_answer")}
-
-
-@pytest.mark.parametrize("fault", sorted(TRAIN_FAULTS))
-@pytest.mark.parametrize("cell", TRAIN)
-def test_training_fault_is_not_correct(cell, fault):
-    with TRAIN_FAULTS[fault]():
-        _, res = run_tiny(cell)
-    assert not res["correct"], res["checks"]
-
-
-@pytest.mark.parametrize("fault", sorted(ENCODE_FAULTS))
-@pytest.mark.parametrize("cell", ENCODE)
-def test_encode_fault_is_not_correct(cell, fault):
-    with ENCODE_FAULTS[fault]():
+@pytest.mark.parametrize("cell,fault", FAULT_CASES)
+def test_fault_is_not_correct(cell, fault):
+    with kind_of(cell).FAULTS[fault]():
         _, res = run_tiny(cell)
     assert not res["correct"], res["checks"]
 
@@ -135,19 +108,21 @@ def test_control_is_not_correct_on_the_card(cell, cuda):
     """The control at the cell's own size on the card, three seeds:
     every reading fails a limit."""
     import time
+    import torch
+    from portbench import calibrate
     from portbench.harness import check
-    entry = core.find(MANIFEST["workloads"], cell, "workload")
+    entry = core.find(workloads(MANIFEST), cell, "workload")
+    if torch.cuda.device_count() < entry["chips"]:
+        pytest.skip(f"needs {entry['chips']} CUDA devices")
     config = dict(core.load_config(MANIFEST, entry["config"]),
                   compute_dtype="bfloat16")
     traffic = core.load_traffic(entry["traffic"])
-    kind = traffic["kind"]
-    reading = calibrate.train_reading if kind == "train" \
-        else calibrate.encode_reading
-    for i in range(3):
-        c = core.Cell(name=cell, config=config, traffic=traffic,
-                      arch=core.load_arch(config["arch"]),
-                      seed=calibrate.SEED0 + 104729 * i, seconds=3.0,
-                      trace=False, device=cuda, t0=time.perf_counter())
-        numbers = reading(c)
-        limits = dict(config["limits"][kind])
+    kind = kind_of(cell)
+    cells = [core.Cell(name=cell, config=config, traffic=traffic,
+                       arch=core.load_arch(config["arch"]),
+                       seed=calibrate.SEED0 + 104729 * i, seconds=3.0,
+                       trace=False, device=cuda, t0=time.perf_counter(),
+                       chips=entry["chips"]) for i in range(3)]
+    limits = dict(config["limits"][kind.LIMITS])
+    for numbers in kind.readings([(c, None) for c in cells]):
         assert not check.passed(check.judge(numbers, limits)), numbers

@@ -21,7 +21,7 @@ def test_a_run_imports_neither_jax_nor_the_jax_package():
     code = (
         "import sys; sys.path.insert(0, '.');"
         "from portbench.harness import core, train_cell, encode_cell, "
-        "check, trace, flops, data;"
+        "dp_cell, check, trace, flops, data;"
         "from portbench import calibrate;"
         "import portbench.reference.cnn_ae, "
         "portbench.reference.resnet18_triplet;"

@@ -7,6 +7,7 @@ import re
 import pytest
 
 from portbench.harness import core
+from portbench.tests.helpers import workloads
 
 MANIFEST = core.load_manifest()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
@@ -69,10 +70,14 @@ def test_workloads():
     pairs = set()
     for w in MANIFEST["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
-        assert w["chips"] == 1
+        assert w["chips"] in (1, 4)
         assert _line(w["why"])
         assert (w["config"], w["traffic"]) not in pairs
         pairs.add((w["config"], w["traffic"]))
+    # at most a quarter of the cells (rounded down) ask for four chips,
+    # and one always may
+    four = sum(w["chips"] == 4 for w in MANIFEST["workloads"])
+    assert four <= max(1, len(MANIFEST["workloads"]) // 4)
 
 
 def test_metrics():
@@ -108,17 +113,20 @@ def test_every_cell_reports_enough():
         assert core.layer_metrics(MANIFEST, cell)
 
 
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", [w["name"] for w in workloads(MANIFEST)])
 def test_cell_finds_its_files_by_name(cell):
-    """A cell needs only its own configuration, traffic mix, reference
-    and readers, each found by its name."""
-    w = core.find(MANIFEST["workloads"], cell, "workload")
+    """A cell, or a planned one, needs only its own configuration,
+    traffic mix, reference and readers, each found by its name."""
+    w = core.find(workloads(MANIFEST), cell, "workload")
     cfg = core.load_config(MANIFEST, w["config"])
     traffic = core.load_traffic(w["traffic"])
-    assert callable(core.load_kind(traffic["kind"]).run)
+    kind = core.load_kind(traffic["kind"])
+    for fn in ("run", "readings", "tiny"):
+        assert callable(getattr(kind, fn)), fn
+    assert kind.FAULTS and all(callable(f) for f in kind.FAULTS.values())
     arch = core.load_arch(cfg["arch"])
     assert arch.param_spec(cfg)
-    assert traffic["kind"] in cfg["limits"]
+    assert kind.LIMITS in cfg["limits"]
     for m in core.layer_metrics(MANIFEST, cell):
         assert callable(core.load_reader(m["name"]))
 

@@ -91,7 +91,8 @@ def test_encode_trace_readers_by_hand():
 
 TRACE_READERS = ["stack_upload_ms.train", "checkpoint_submit_ms.train",
                  "idle_between_phases.train", "encode_upload_ms.encode",
-                 "encode_launch_ms.encode", "encode_readback_ms.encode"]
+                 "encode_launch_ms.encode", "encode_readback_ms.encode",
+                 "encode_replayed_share.encode"]
 
 
 @pytest.mark.parametrize("metric", TRACE_READERS)
