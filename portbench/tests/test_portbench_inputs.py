@@ -20,7 +20,7 @@ from portbench.harness import core, data, train_cell
 from portbench.tests.helpers import TINY, tiny_cell
 
 CONFIG4 = {"losses": ["autoencoder:1:100", "inverse:2:50", "forward:1:25",
-                      "reward:1:25"], "state_dim": 200}
+                      "reward:1:25"]}
 
 
 class Transitions:

@@ -45,12 +45,3 @@ def test_encode_replayed_share_by_hand(replayed, share, monkeypatch):
     monkeypatch.delattr(StateEncoder, "counts")
     assert _read(r) is None
 
-
-def test_encode_replayed_share_without_spans_reads_nothing():
-    """A trace without the port's spans (a port that emits none, or a
-    CPU run, whose host events are not kept) gives no number."""
-    r = SimpleNamespace(trace=Trace(device=[(0, 10, "k"), (50_000, 50_010,
-                                                          "k")],
-                                    host=[(0, 60_000, "aten::mm")]),
-                        traced_s=1e-4, traced_call_s=[1e-4], epoch_s=[])
-    assert _read(r) is None
