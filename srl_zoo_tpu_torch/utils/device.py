@@ -27,16 +27,29 @@ def resolve_device(device=None) -> torch.device:
 
 
 def use_strict_float32() -> None:
-    """Run float32 convolutions and products in full float32, and reduce
-    bfloat16 products in float32.
+    """Run float32 convolutions and products in full float32, reduce
+    bfloat16 products in float32, and let cuDNN pick each convolution's
+    plan by timing.
 
     cuDNN convolutions default to TF32 (about three decimal digits); the
     JAX reference computes float32 configs in float32. cuBLAS may reduce
     the partial sums of a split-K bfloat16 product in bfloat16
     (``allow_bf16_reduced_precision_reduction``, on by default); XLA
     accumulates a bfloat16 product in float32 and rounds once, so the
-    switch is turned off for the ``--dtype bfloat16`` configs."""
+    switch is turned off for the ``--dtype bfloat16`` configs.
+
+    cuDNN's instant heuristic runs the first plan it ranks for each
+    convolution, which for the models' NHWC float32 convolutions with
+    TF32 off is often not the fastest. ``cudnn.benchmark`` times the plans
+    of each new convolution (shape, dtype, layout, pointer alignment)
+    once, caches the fastest for the process, and runs it from then on.
+    The shapes are static, so the search is paid once, in the first step;
+    the epoch runner and the encoder warm each graph's steps eagerly
+    before capturing them (``ops/_build.py`` ``run_on``), so no search
+    runs inside a capture. ``cudnn.deterministic`` keeps its meaning: the
+    timed pick is then among the deterministic plans."""
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = True
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
         False

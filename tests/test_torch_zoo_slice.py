@@ -345,6 +345,34 @@ def test_resolve_device_none_raises_without_a_gpu():
     assert resolve_device("cpu") == torch.device("cpu")
 
 
+def test_strict_float32_times_the_convolution_plans_with_tf32_off():
+    """``use_strict_float32`` turns on cuDNN's timed plan choice and keeps
+    TF32 and the bfloat16 reduced-precision reduction off, whatever the
+    switches were before, and leaves ``cudnn.deterministic`` as it was;
+    the process's switches are restored after."""
+    from srl_zoo_tpu_torch.utils.device import use_strict_float32
+    switches = ((torch.backends.cudnn, "benchmark"),
+                (torch.backends.cudnn, "deterministic"),
+                (torch.backends.cudnn, "allow_tf32"),
+                (torch.backends.cuda.matmul, "allow_tf32"),
+                (torch.backends.cuda.matmul,
+                 "allow_bf16_reduced_precision_reduction"))
+    saved = [getattr(owner, name) for owner, name in switches]
+    try:
+        for owner, name in switches:
+            setattr(owner, name, name != "benchmark")
+        use_strict_float32()
+        assert torch.backends.cudnn.benchmark is True
+        assert torch.backends.cudnn.deterministic is True
+        assert torch.backends.cudnn.allow_tf32 is False
+        assert torch.backends.cuda.matmul.allow_tf32 is False
+        assert torch.backends.cuda.matmul \
+            .allow_bf16_reduced_precision_reduction is False
+    finally:
+        for (owner, name), value in zip(switches, saved):
+            setattr(owner, name, value)
+
+
 @pytest.mark.parametrize("model_type", ["mlp", "linear"])
 def test_config_takes_the_dense_model_types(model_type):
     """The mlp and linear types, once refused, configure at either
