@@ -27,8 +27,7 @@ statistics take the global ones. Its backward is written out (the
 gradient of batch normalization through global statistics), so that it
 takes one all-reduce, of the per-channel sums of dy and dy * xhat, and a
 few whole-tensor passes, where autograd through the forward's operators
-took two all-reduces and a pass per operator (phase 4c of chip_smoke.py
-times the step both ways against nn.BatchNorm2d's).
+took two all-reduces and a pass per operator.
 """
 
 from __future__ import annotations

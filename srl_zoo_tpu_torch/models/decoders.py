@@ -20,8 +20,9 @@ keep their bias, as flax's do by default.
 of that name does: "conv_transpose" (the default, cuDNN's transposed
 convolution) or "subpixel" (one stride-1 convolution and a depth-to-space,
 ops/subpixel.py). Both read the same ConvTranspose2d weight and bias, so
-one state dict loads into either; chip_smoke.py phase 2c measures them
-against each other (PERF.md §6).
+one state dict loads into either; PERF.md §6 records them against each
+other on the card, and tests/test_torch_zoo_card_kernels.py holds them
+to each other there.
 
 DenseDecoder, the decoder of the mlp and linear model types:
 

@@ -31,7 +31,8 @@ torchvision keys, ``--pretrained-weights`` and the bridge hold for either:
 The JAX package builds its ResNet with "s2d", which fills the TPU's
 128-wide contraction where a 3-channel input does not. ``make_encoder``
 builds the port's with "direct": on the H100 the choice waits for the
-card's own measurement (chip_smoke.py phase 2c, PERF.md §6). Activations
+card's own measurement (PERF.md §6; tests/test_torch_zoo_card_kernels.py
+holds the two stems to each other there). Activations
 stay channels_last in memory, so the stem pool (the fused relu + pool
 kernel, ops/fused_pool.py) reads the BatchNorm output in place.
 

@@ -23,8 +23,9 @@ ties to the lowest index as ``lax.top_k`` gives them. ``"blocked"``
 (:func:`knn_topk_blocked`, plain tensor code on either device) walks the
 references in tiles of ``BLOCK_TILE`` rows, keeps each tile's k smallest
 and merges them into a running best k: the (Q, N) matrix is never whole,
-one (Q, tile) block at a time is. chip_smoke.py phase 2c measures it
-against the other two routes (PERF.md §6).
+one (Q, tile) block at a time is. PERF.md §6 records it against the
+other two routes on the card; tests/test_torch_zoo_card_kernels.py holds
+it to the ``full`` route there.
 
 ``knn_topk_sharded`` (port of ``srl_zoo_tpu/ops/knn_topk.py``
 ``knn_topk_sharded``) splits the references over the ranks of a process

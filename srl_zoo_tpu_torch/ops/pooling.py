@@ -2,8 +2,9 @@
 ``srl_zoo_tpu/ops/pooling.py``).
 
 The port's models pool through K1f/K1b (ops/fused_pool.py). These two
-formulations are kept as references and measured against it on the card
-(chip_smoke.py phase 2c, PERF.md §6); no model calls them.
+formulations are kept as references, measured against it on the card
+(PERF.md §6) and held to it bit for bit there
+(tests/test_torch_zoo_card_kernels.py); no model calls them.
 
 * :func:`max_pool_tree`: the pool as a chain of maxima of nine strided
   slices of the padded input. Its backward is autograd's through

@@ -12,11 +12,11 @@ packages that round one intermediate value to neighbouring bfloat16
 numbers carry that difference on. The train-mode BatchNorm backward
 cancels heavily: one step's gradients stray from the float64 step's by
 10-50% (relative L2) in either package. So a bfloat16 result is held the
-way ``chip_smoke.py`` holds the card's ResNet step: both packages'
-bfloat16 results against a float64 computation of the same function (the
-port's float32 configuration in float64, the same weights and inputs),
-and the port's deviation at most twice JAX's own. Tolerances, each with
-its reason:
+way ``test_torch_zoo_card_steps.py`` holds the card's ResNet step: both
+packages' bfloat16 results against a float64 computation of the same
+function (the port's float32 configuration in float64, the same weights
+and inputs), and the port's deviation at most twice JAX's own.
+Tolerances, each with its reason:
 
 * the plain K1b in bfloat16: equal bit for bit to JAX's ``_bwd_pallas``
   (both add the window gradients in float32 and round once), and within
@@ -522,7 +522,7 @@ def test_cli_trains_in_bf16(case, synthetic_dataset, synthetic_dataset_mv,
     if enc.cfg.stack_views:
         frames = np.concatenate([frames, np.asarray(ds.frames_2[:8])], -1)
     # export batches (256 rows) and encode chunks (32) may sum in other
-    # orders: relative to the states' scale, as chip_smoke.py holds it
+    # orders: relative to the states' scale, as the card tests hold it
     _close_rel_max(enc.encode(frames), states[:8], 1e-5)
     score, _, _ = knn_mse(states, ds.ground_truth_states, k=5, device="cpu")
     assert np.isfinite(score)

@@ -4,8 +4,8 @@ their host-side parts and plain versions, against the JAX package.
 K2 takes its index on the host: the range check runs in numpy before any
 launch, and the index goes up without a synchronise. K3's grid is planned
 from the SM count and the kernel's occupancy. Both are Python that runs
-here; the CUDA kernels run only on a GPU (chip_smoke.py holds them against
-their plain versions there). Inputs come from numpy with a seed.
+here; the CUDA kernels run only on a GPU (test_torch_zoo_card_kernels.py
+holds them against their plain versions there). Inputs come from numpy with a seed.
 Tolerances: K2 1e-6 absolute (one rounding of the affine map); K3 1e-5
 relative on distances (f32 summation order), indices equal.
 """

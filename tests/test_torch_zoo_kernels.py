@@ -3,8 +3,8 @@
 Each kernel of ``srl_zoo_tpu_torch/ops`` has a plain PyTorch version that
 runs on the CPU; it is held here against the JAX function, which reaches
 its Pallas kernel in interpret mode (as tests/test_ops.py runs it) or its
-XLA reference. The CUDA kernels themselves run only on a GPU: chip_smoke.py
-holds each against its plain version there. Inputs come from numpy with a
+XLA reference. The CUDA kernels themselves run only on a GPU:
+test_torch_zoo_card_kernels.py holds each against its plain version there. Inputs come from numpy with a
 seed. Tolerances: K1 (relu + pool) exact, y and argmax; K2 (gather +
 normalize) 1e-6 absolute (one rounding of the affine map); K3 (distance +
 top-k) 1e-5 relative on distances (f32 summation order), indices equal.

@@ -8,8 +8,8 @@ cancels for near points, so the tolerance is 1e-5 of |x_i|^2 + |y_j|^2
 per element, not of the distance. The ``full`` route (K4, then a stable
 sort cut to k) is held against JAX's ``impl="full"``: indices equal on
 separated random points, distances within 1e-5 relative, ties to the
-lowest index. The CUDA kernel runs only on a GPU: chip_smoke.py holds it
-against its plain version there.
+lowest index. The CUDA kernel runs only on a GPU:
+test_torch_zoo_card_kernels.py holds it against its plain version there.
 """
 
 import jax.numpy as jnp

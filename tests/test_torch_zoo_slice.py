@@ -301,13 +301,17 @@ def test_server_encodes_on_one_warmed_thread(port_run, synthetic_dataset,
 def test_port_imports_neither_jax_nor_the_jax_package(port_run,
                                                       synthetic_dataset):
     """After importing every module of the port (found by walking the
-    package) and chip_smoke, and a CPU encode, neither jax nor
-    srl_zoo_tpu is loaded."""
+    package) and the card test modules, which run alone on the card, and
+    a CPU encode, neither jax nor srl_zoo_tpu is loaded."""
     np.save(os.path.join(port_run, "_probe.npy"),
             np.asarray(synthetic_dataset.frames[:2]))
     code = (
         "import importlib, pkgutil, sys, numpy as np\n"
-        "import chip_smoke, srl_zoo_tpu_torch\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import srl_zoo_tpu_torch\n"
+        "for card in ('card_kernels', 'card_steps', 'card_paths',\n"
+        "             'epoch_card', 'encode_graph'):\n"
+        "    importlib.import_module('test_torch_zoo_' + card)\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    srl_zoo_tpu_torch.__path__, 'srl_zoo_tpu_torch.')]\n"
         "for name in names:\n"
