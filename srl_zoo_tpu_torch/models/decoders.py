@@ -22,7 +22,11 @@ convolution) or "subpixel" (one stride-1 convolution and a depth-to-space,
 ops/subpixel.py). Both read the same ConvTranspose2d weight and bias, so
 one state dict loads into either; PERF.md §6 records them against each
 other on the card, and tests/test_torch_zoo_card_kernels.py holds them
-to each other there.
+to each other there. On "conv_transpose", the last deconvolution with its
+bias and tanh runs as one hand-written kernel each way
+(ops/deconv_out.py) wherever its input and layer take it (``fits``: a
+CUDA float32 input, at most 8 output and 64 input channels); the CPU,
+float64 reference runs and wider layers keep the layer and ``torch.tanh``.
 
 DenseDecoder, the decoder of the mlp and linear model types:
 
@@ -48,6 +52,7 @@ from srl_zoo_tpu_torch.models.batchnorm import BatchNorm
 from srl_zoo_tpu_torch.models.mlp import MLP
 from srl_zoo_tpu_torch.models.precision import at_least_f32, dense
 from srl_zoo_tpu_torch.models.precision import deconv as conv_transpose
+from srl_zoo_tpu_torch.ops import deconv_out
 from srl_zoo_tpu_torch.ops.subpixel import subpixel_deconv
 
 WIDTHS = (64, 64, 32, 16)
@@ -99,8 +104,10 @@ class CNNDecoder(nn.Module):
                       ).permute(0, 3, 1, 2)
         for layer, bn in zip(self.deconvs, self.bns):
             x = torch.relu(bn(self._deconv(layer, x, dt)))
-        return torch.tanh(self._deconv(self.deconvs[-1], at_least_f32(x),
-                                       None))
+        x, last = at_least_f32(x), self.deconvs[-1]
+        if self._deconv is conv_transpose and deconv_out.fits(last, x):
+            return deconv_out.deconv_out_tanh(x, last.weight, last.bias)
+        return torch.tanh(self._deconv(last, x, None))
 
 
 class DenseDecoder(MLP):

@@ -40,7 +40,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "srl_zoo_tpu_torch"
 SOURCES = ("fused_pool", "fused_pool_bwd", "gather_norm", "knn_topk",
-           "pairwise")
+           "pairwise", "deconv_out")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -62,6 +62,13 @@ SIGNATURES = {
                  [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
                  "srl_knn_blocks_per_sm": [_I, _I]},
     "pairwise": {"srl_pairwise_sqdist": [_P, _P, _P, _I, _I, _I, _P]},
+    "deconv_out": {"srl_deconv_out_tanh_fwd":
+                   [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+                   "srl_deconv_out_tanh_bwd":
+                   [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                    _P],
+                   "srl_deconv_out_grid": [_I, _I, _I, _I, _I, _I, _I],
+                   "srl_deconv_out_partials": [_I, _I]},
 }
 
 _lock = threading.Lock()

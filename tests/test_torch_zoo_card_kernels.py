@@ -4,9 +4,10 @@ PyTorch versions: the fused relu + max-pool forward (K1f) and backward
 the pairwise distances (K4), at the shapes the main paths give them and
 at edge shapes, each on the path its shape selects (the wrappers'
 ``vector_launches`` and ``bf16_launches``); K3 over reference blocks
-merged by ``merge_topk``; and the measured alternatives (subpixel
+merged by ``merge_topk``; the measured alternatives (subpixel
 deconvolution, the pool formulations, the s2d stem and the blocked
-neighbour route) against the port's own formulations.
+neighbour route) against the port's own formulations; and the decoder's
+last deconvolution with its bias and tanh (K5) against float64.
 
 Every test needs a CUDA device and skips without one; this file imports
 no JAX, so on the card it runs alone:
@@ -525,3 +526,89 @@ def test_blocked_route_against_the_full_route(cuda, gen):
     fd, fi = knn_topk_with_dist(q, refs, K, impl="full")
     assert float(((bd - fd).abs() / fd.abs().clamp_min(1e-30)).max()) <= 1e-4
     near_ties(q, refs, bi, fi, 1e-4)
+
+
+# ---------------------------------------------------------------------------
+# K5: the decoder's last deconvolution, its bias and tanh
+# ---------------------------------------------------------------------------
+
+# (B, Cin, H, W, C): config 1's last layer, a multi-view frame's 6
+# channels, one image, an odd batch over a 96 x 128 output, and partial
+# tiles with a Cin off the 16-byte path and two chunks of output channels
+DECONV_SHAPES = [(TRAIN_BATCH, 16, 112, 112, 3),
+                 (TRAIN_BATCH, 16, 112, 112, 6), (1, 16, 112, 112, 3),
+                 (5, 16, 48, 64, 3), (3, 5, 20, 36, 7)]
+# the largest deviation from float64 allowed of y, dx, dW and db, of each
+# one's largest magnitude: above the float32 cuDNN route's own deviation
+# at the same draws, which each test checks too
+DECONV_TOL = {"y": 1e-6, "dx": 2e-6, "dw": 1e-5, "db": 1e-5}
+
+
+def deconv_case(cuda, gen, shape):
+    """The layer (default init), a relu'd normal x in channels_last and a
+    normal output gradient, all float32."""
+    from torch import nn
+    b, cin, h, w, c = shape
+    torch.manual_seed(SEED)
+    layer = nn.ConvTranspose2d(cin, c, 4, stride=2, padding=1).to(cuda)
+    x = torch.relu(torch.randn((b, cin, h, w), generator=gen, device=cuda)
+                   ).contiguous(memory_format=torch.channels_last)
+    g = torch.randn((b, c, 2 * h, 2 * w), generator=gen, device=cuda
+                    ).contiguous(memory_format=torch.channels_last)
+    return layer, x, g
+
+
+def deconv_route(fn, x, layer, g) -> dict:
+    """y, dx, dW and db of ``fn(x, W, b)`` for the output gradient g."""
+    xg = x.detach().clone().requires_grad_()
+    wg = layer.weight.detach().clone().requires_grad_()
+    bg = layer.bias.detach().clone().requires_grad_()
+    y = fn(xg, wg, bg)
+    dx, dw, db = torch.autograd.grad(y, (xg, wg, bg), g.to(y.dtype))
+    return {"y": y.detach(), "dx": dx, "dw": dw, "db": db}
+
+
+def cudnn_route(x, w, b):
+    import torch.nn.functional as Fn
+    return torch.tanh(Fn.conv_transpose2d(x, w, b, stride=2, padding=1))
+
+
+@pytest.mark.parametrize("shape", DECONV_SHAPES)
+def test_deconv_out_against_float64(cuda, gen, shape):
+    """K5's y, dx, dW and db against torch's ``conv_transpose2d`` +
+    ``tanh`` in float64 on the card, within DECONV_TOL of each result's
+    largest magnitude, as is the float32 cuDNN route at the same draws;
+    one launch each way; y and dx channels_last."""
+    from srl_zoo_tpu_torch.ops.deconv_out import (deconv_out_tanh,
+                                                  deconv_out_tanh_bwd, fits)
+    layer, x, g = deconv_case(cuda, gen, shape)
+    assert fits(layer, x)
+    want = deconv_route(cudnn_route, x.double(), layer.double(), g)
+    layer.float()
+    before = deconv_out_tanh.launches, deconv_out_tanh_bwd.launches
+    got = deconv_route(deconv_out_tanh, x, layer, g)
+    assert (deconv_out_tanh.launches - before[0],
+            deconv_out_tanh_bwd.launches - before[1]) == (1, 1)
+    cudnn = deconv_route(cudnn_route, x, layer, g)
+    assert got["y"].is_contiguous(memory_format=torch.channels_last)
+    assert got["dx"].is_contiguous(memory_format=torch.channels_last)
+    for k, tol in DECONV_TOL.items():
+        close_rel_max(got[k], want[k], tol)
+        close_rel_max(cudnn[k], want[k], tol)
+
+
+def test_deconv_out_backward_is_deterministic_and_does_not_synchronise(
+        cuda, gen):
+    """At config 1's shape two backward calls give the same bits, and a
+    forward and a backward call complete without a synchronise."""
+    from srl_zoo_tpu_torch.ops.deconv_out import (deconv_out_tanh,
+                                                  deconv_out_tanh_bwd)
+    from torch_card_lib import assert_no_sync
+    layer, x, g = deconv_case(cuda, gen, DECONV_SHAPES[0])
+    w, bias = layer.weight.detach(), layer.bias.detach()
+    y = deconv_out_tanh(x, w, bias)
+    runs = [deconv_out_tanh_bwd(g, y, x, w) for _ in range(2)]
+    assert all(torch.equal(*pair) for pair in zip(*runs))
+    assert_no_sync([("K5 forward", lambda: deconv_out_tanh(x, w, bias)),
+                    ("K5 backward",
+                     lambda: deconv_out_tanh_bwd(g, y, x, w))])

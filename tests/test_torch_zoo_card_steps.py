@@ -21,7 +21,8 @@ import torch
 
 from torch_card_lib import cuda  # noqa: F401 (a fixture)
 from torch_card_lib import (ALL_CONFIGS, BATCH, IMG, N_FRAMES, SEED,
-                            STATE_DIM, assert_no_sync, train_config)
+                            STATE_DIM, assert_no_sync, launches,
+                            train_config)
 
 pytestmark = pytest.mark.chip
 CONFIG = {name: (tokens, kw) for name, tokens, _, kw in ALL_CONFIGS}
@@ -124,6 +125,22 @@ def test_steps_do_not_synchronise(cuda, views, name):
     for _, call in calls:
         call()
     assert_no_sync(calls)
+
+
+@pytest.mark.parametrize("name", ["autoencoder", "autoencoder-bf16"])
+def test_steps_launch_the_last_deconvolution_once_each_way(cuda, views,
+                                                           name):
+    """Config 1's train step runs the decoder's last deconvolution, bias
+    and tanh as one K5 forward and one K5 backward, its eval step as one
+    forward (in bf16 too: the last layer computes in float32)."""
+    calls, _ = step_calls(name, views, cuda)
+    for _, call in calls:
+        call()
+    for (_, call), want in zip(calls, [(1, 1), (1, 0)]):
+        with launches() as ran:
+            call()
+        assert (ran["deconv_out_tanh"], ran["deconv_out_tanh_bwd"]) == \
+            want, ran
 
 
 @pytest.mark.parametrize("name", ["autoencoder", "triplet",

@@ -84,7 +84,7 @@ def test_captured_steps_equal_the_eager_loop_with_timed_plans(
     and ``eval_step`` run eagerly from the same weights on the same
     batches: every step's metrics, every parameter, buffer and Adam
     state, bit for bit; each phase captured once, and the capture
-    raised nothing."""
+    raised nothing; the decoder's last layer ran on K5 in every step."""
     from srl_zoo_tpu_torch.training.epoch import EpochRunner
     from srl_zoo_tpu_torch.training.learner import stack_batches
     from srl_zoo_tpu_torch.training.state import make_model, make_optimizer
@@ -109,13 +109,18 @@ def test_captured_steps_equal_the_eager_loop_with_timed_plans(
     eager_val = [eval_step(m1, store, b) for b in val]
     m2, o2, g2 = fresh()
     runner = EpochRunner(m2, o2, g2)
-    got_train = runner.train_epoch(store, stack_batches(train, cfg, ROWS))
-    got_val = runner.eval_epoch(store, stack_batches(val, cfg, ROWS))
-    torch.cuda.synchronize()
+    with launches() as ran:
+        got_train = runner.train_epoch(store, stack_batches(train, cfg,
+                                                            ROWS))
+        got_val = runner.eval_epoch(store, stack_batches(val, cfg, ROWS))
+        torch.cuda.synchronize()
 
     assert runner.counts() == {"eager_steps": 2,
                                "replays": TRAIN_REPLAYS + EVAL_REPLAYS,
                                "captures": 2}
+    # the decoder's last layer on K5, counted once a step, replays too
+    assert (ran["deconv_out_tanh"], ran["deconv_out_tanh_bwd"]) == (
+        1 + TRAIN_REPLAYS + 1 + EVAL_REPLAYS, 1 + TRAIN_REPLAYS), ran
     pairs = []
     for phase, eager, got in (("train", eager_train, got_train),
                               ("eval", eager_val, got_val)):

@@ -114,13 +114,15 @@ def train_config(tokens, batch_size: int = BATCH, model_kw=None):
 
 def kernel_counters() -> dict:
     """Each kernel's wrapper by name: the launch counts live on them."""
-    from srl_zoo_tpu_torch.ops import (fused_pool, gather_norm, knn_topk,
-                                       pairwise)
+    from srl_zoo_tpu_torch.ops import (deconv_out, fused_pool, gather_norm,
+                                       knn_topk, pairwise)
     return {"relu_max_pool": fused_pool.relu_max_pool,
             "relu_max_pool_bwd": fused_pool.relu_max_pool_bwd,
             "gather_normalize": gather_norm.gather_normalize,
             "knn_topk": knn_topk.knn_topk_with_dist,
-            "pairwise_sqdist": pairwise.pairwise_sqdist}
+            "pairwise_sqdist": pairwise.pairwise_sqdist,
+            "deconv_out_tanh": deconv_out.deconv_out_tanh,
+            "deconv_out_tanh_bwd": deconv_out.deconv_out_tanh_bwd}
 
 
 @contextlib.contextmanager
